@@ -1,0 +1,88 @@
+"""Two-locus haplotype-frequency EM, plain PyTorch (ngsld_tpu/ops/em.py).
+
+The CPU engine and the oracle of the CUDA kernel (kernels/pair_em.py).
+Per individual and iteration (gen_func.cpp:1027-1119):
+
+    D_k[i]   = sum_h f_h * P_i[G1(k,h), G2(k,h)]
+    s[i]     = sum_k f_k * D_k[i]
+    f_k_new  = f_k * (sum_i include_i * D_k[i] / s[i]) * (1/x)
+
+normalised by ((f0+f1)+f2)+f3. A pair freezes when the NaN-ignoring max
+|df_k| drops below EPSILON (n_iter = that 0-based iteration), else runs to
+ITER_MAX. x = 0 pairs (all individuals excluded) update to NaN, and the
+NaN-ignoring fold freezes them at n_iter 0 with NaN frequencies.
+
+Shapes: gl1, gl2 (P, I, 3) normal-space GLs; all outputs (P, ...).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ngsld_tpu.constants import EPSILON, ITER_MAX
+
+from .preprocess import miss_mask
+
+# (k -> site-1 allele bit, site-2 allele bit); k = 2*a1 + a2
+_KBITS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def _em_update(f, gl1, gl2, include, inv_x):
+    """One EM step for all pairs. f: (P,4); gl1/gl2: (P,I,3);
+    include: (P,I) float mask; inv_x: (P,) = 1/n_used."""
+    D = []
+    for (a1k, a2k) in _KBITS:
+        d = None
+        for (a, b) in _KBITS:
+            t = f[:, 2 * a + b, None] * gl1[:, :, a1k + a] * gl2[:, :, a2k + b]
+            d = t if d is None else d + t
+        D.append(d)
+    s = None
+    for k in range(4):
+        t = f[:, k, None] * D[k]
+        s = t if s is None else s + t
+    r = include / s  # masked reciprocal; excluded inds contribute 0
+    f_new = [f[:, k] * (D[k] * r).sum(dim=1) * inv_x for k in range(4)]
+    norm = ((f_new[0] + f_new[1]) + f_new[2]) + f_new[3]
+    return torch.stack([fk / norm for fk in f_new], dim=1)
+
+
+def pair_em(gl1: torch.Tensor, gl2: torch.Tensor, maf1: torch.Tensor,
+            maf2: torch.Tensor, ignore_miss_data: bool, live=None):
+    """EM haplotype frequencies for P pairs.
+
+    Returns (f (P,4), n_iter (P,) int32, n_used (P,) int32). live (P,)
+    bool (optional): pairs outside it freeze at the f0 init with
+    n_iter == ITER_MAX."""
+    dt = gl1.dtype
+    P = gl1.shape[0]
+    f = torch.stack([(1 - maf1) * (1 - maf2), (1 - maf1) * maf2,
+                     maf1 * (1 - maf2), maf1 * maf2], dim=1).to(dt)
+    if ignore_miss_data:
+        include = ~(miss_mask(gl1) | miss_mask(gl2))
+    else:
+        include = torch.ones(gl1.shape[:2], dtype=torch.bool,
+                             device=gl1.device)
+    n_used = include.sum(dim=1).to(torch.int32)
+    incf = include.to(dt)
+    inv_x = 1.0 / n_used.to(dt)
+
+    active = (torch.ones(P, dtype=torch.bool, device=gl1.device)
+              if live is None else live.clone())
+    n_iter = torch.full((P,), ITER_MAX, dtype=torch.int32, device=gl1.device)
+    it = 0
+    while it < ITER_MAX and bool(active.any()):
+        f_new = _em_update(f, gl1, gl2, incf, inv_x)
+        f_next = torch.where(active[:, None], f_new, f)
+        diffs = (f_next - f).abs()
+        # NaN-ignoring max fold (`if (x > eps) eps = x`); torch.maximum
+        # would propagate NaN instead
+        eps = torch.zeros(P, dtype=dt, device=gl1.device)
+        for k in range(4):
+            eps = torch.where(diffs[:, k] > eps, diffs[:, k], eps)
+        newly = active & (eps < EPSILON)
+        n_iter = torch.where(newly, torch.full_like(n_iter, it), n_iter)
+        active = active & ~newly
+        f = f_next
+        it += 1
+    return f, n_iter, n_used
