@@ -6,25 +6,34 @@
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, whether the native host library loaded
-  2. build: the CUDA kernels from csrc/, timed
-  3. kernel vs plain on the card: pair_em_gather against its plain PyTorch
-     twin (f to f's rounding, nIter and n_used exact) at the main path's
-     524,288-pair block x 100 individuals (f32 and f64, --ignore_miss_data
-     off and on, x = 0 pairs included), at I = 37 and I = 1,200; kernel
-     and plain times at 524,288 x 100
+  2. build: the CUDA kernels from csrc/, one nvcc per source, timed
+  3. kernel vs plain on the card, each kernel against its plain PyTorch
+     version: pair_em_gather at the gather path's 524,288-pair block x 100
+     individuals (f32 and f64, --ignore_miss_data off and on, x = 0 pairs
+     included), at I = 37 and I = 1,200; strip_em at the strip path's
+     256-tile chunk x 100 individuals (all-pairs tiles of a 4,096-site
+     table, diagonal tiles with dead halves and full tiles,
+     --ignore_miss_data off and on) and 16 tiles at I = 37 and I = 1,200;
+     f to f's rounding, nIter and n_used exact; kernel and plain times,
+     and each kernel's bound on this card
   4. the slice vs the strict oracle: the port's CLI on the card against
-     --engine strict, 24 x 2,000 fixture, four flag variants
+     --engine strict, 24 x 2,000 fixture, four flag variants, each
+     through the gather sweep and through the strip sweep; plus a 12 x 384
+     all-pairs fixture with flat and compact strip emission, byte-equal
   5. real size: 25,000 sites x 100 individuals, --max_kb_dist 100
-     --extend_out, through the port's CLI; row count against the host
-     plan, kernel launches against the block count, a row sample against
-     strict recomputes; wall, stage split and pairs/s
-  6. device idle share: the phase 5 run under torch.profiler; busy time
-     is the union of the trace's device intervals
+     --extend_out, through the port's CLI; the auto rule must take the
+     strip sweep: row count against the host plan, strip launches against
+     the chunk count, a row sample against strict recomputes; wall, stage
+     split and pairs/s. Then the same fixture cut to 10,000 sites through
+     the gather sweep (launches against the block count, sample against
+     strict) and through the strip sweep, the two outputs held together
+  6. device idle share: the phase 5 strip run under torch.profiler; busy
+     time is the union of the trace's device intervals
 
 Then one JSON line of per-kernel results and, last, the `ok` line. Any
 failure exits non-zero without those lines; so does a machine without a
-CUDA device. JAX is blocked from import for the whole run: the port and
-the host modules it reuses from ngsld_tpu never import it.
+CUDA device. JAX and the JAX package ngsld_tpu are blocked from import
+for the whole run: the port imports neither.
 """
 
 from __future__ import annotations
@@ -39,14 +48,24 @@ import tempfile
 import time
 import traceback
 
-sys.modules["jax"] = None   # any `import jax` below raises ImportError
+sys.modules["jax"] = None         # any `import jax` below raises ImportError
+sys.modules["ngsld_tpu"] = None   # and so does any import of the JAX package
 
 import numpy as np  # noqa: E402
 
 MAIN_P, MAIN_I = 524_288, 100     # the default --chunk_pairs block, I = 100
+STRIP_S, STRIP_TILES = 4_096, 256  # the strip chunk: 256 tiles of 128 x 128
 REAL_S, REAL_I = 25_000, 100     # README's 25k row: ~4.5M pairs at kb100
+GATHER_S = 10_000                # the same fixture cut, for the gather path
 ENGINE_TAG = "(torch, cuda"        # the engine's device in its config echo
-F32_TOL, F64_TOL = 1e-6, 1e-12   # kernel vs twin: f's output rounding
+F32_TOL, F64_TOL = 1e-6, 1e-12   # kernel vs plain: f's output rounding
+R2P_TOL = 2e-5                   # strip kernel's in-kernel Pearson r2
+# H100 SXM peaks for the bounds: device memory 3.35 TB/s; double precision
+# outside the tensor cores 34 TFLOP/s (NVIDIA's H100 data sheet)
+PEAK_BYTES_S, PEAK_F64_FLOPS = 3.35e12, 34e12
+# flops of one (pair, individual, iteration) of the EM as both kernels
+# write it: Q 12, D 12, s 7, the division 1, the four sums 8
+FLOPS_PER_EVAL = 40
 
 
 def _phase(results, name, fn):
@@ -77,7 +96,7 @@ def _run(cmd):
 
 def phase_env():
     import torch
-    from ngsld_tpu.native import get_lib
+    from ngsld_tpu_torch.native import get_lib
     from ngsld_tpu_torch.kernels.build import find_nvcc
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
@@ -98,25 +117,35 @@ def phase_env():
 # ---------------------------------------------------------------- phase 2
 
 def phase_build():
-    from ngsld_tpu_torch.kernels.build import build_library, get_library
+    from ngsld_tpu_torch.kernels.build import build_libraries, get_library
     t0 = time.perf_counter()
-    so = build_library()
-    get_library()
-    print(f"built {os.path.relpath(so)} in {time.perf_counter() - t0:.3f} s")
+    paths = build_libraries()
+    for name in paths:
+        get_library(name)
+    print(f"built {sorted(os.path.relpath(p) for p in paths.values())} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if sorted(paths) != ["pair_em", "strip_em"]:
+        raise AssertionError(f"unexpected kernel sources: {sorted(paths)}")
 
 
 # ---------------------------------------------------------------- phase 3
+
+def _sim_tables(n_ind, n_sites, seed):
+    """Normal-space GLs, E[G] and MAF (mean E[G] / 2) of a simulated
+    cohort with 2% all-missing sites, float64."""
+    from ngsld_tpu_torch.utils.simulate import simulate
+    sim = simulate(n_ind=n_ind, n_sites=n_sites, seed=seed,
+                   all_missing_site_rate=0.02)
+    gl = sim.gl / sim.gl.sum(axis=2, keepdims=True)
+    eg = gl[..., 1] + 2 * gl[..., 2]
+    return gl, eg, eg.mean(axis=1) / 2
+
 
 def _table(n_ind, n_sites, n_pairs, seed, dtype, device):
     """Site table + banded pairs, built as tests/test_pallas_em.py:9-17
     builds its inputs (simulate, normalise, MAF = mean E[G] / 2)."""
     import torch
-    from ngsld_tpu.utils.simulate import simulate
-    sim = simulate(n_ind=n_ind, n_sites=n_sites, seed=seed,
-                   all_missing_site_rate=0.02)
-    gl = sim.gl / sim.gl.sum(axis=2, keepdims=True)
-    eg = gl[..., 1] + 2 * gl[..., 2]
-    maf = eg.mean(axis=1) / 2
+    gl, eg, maf = _sim_tables(n_ind, n_sites, seed)
     rng = np.random.default_rng(seed)
     s1 = np.sort(rng.integers(0, n_sites - 1, n_pairs))
     s2 = np.minimum(s1 + rng.integers(1, 256, n_pairs), n_sites - 1)
@@ -177,17 +206,123 @@ def _time(fn, reps=3):
     return best, out
 
 
+def _needed_evals(n_iter, n_ind, cap=100):
+    """(pair, individual, iteration) updates this data needs: a pair that
+    stopped at 0-based iteration n ran n + 1 updates, an unconverged one
+    `cap`. Dead strip cells must be masked out by the caller."""
+    it = n_iter.cpu().numpy().astype(np.int64)
+    return int(np.minimum(it + 1, cap).sum()) * n_ind
+
+
+def _bound(n_bytes, flops):
+    """The least time the card could take, ms, and which side sets it."""
+    t_b, t_f = n_bytes / PEAK_BYTES_S, flops / PEAK_F64_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _strip_case(n_ind, n_sites, n_tiles, seed, device):
+    """strip_em's arguments for the first n_tiles all-pairs tiles of a
+    simulated table (2% all-missing sites), built as the engine builds
+    them: padded to whole tiles, pad sites not ok."""
+    import torch
+    from ngsld_tpu_torch.kernels.strip_em import strip_tables
+    from ngsld_tpu_torch.plan.strips import TA, strip_plan
+    gl, eg, maf = _sim_tables(n_ind, n_sites, seed)
+    S, Sp = n_sites, -(-n_sites // TA) * TA
+    hi = np.zeros(Sp, np.int64)
+    hi[:S] = S
+    ok = np.zeros(Sp, np.float32)
+    ok[:S] = 1.0
+    ta, tb, _, _ = strip_plan(hi, ok, S)
+    ta, tb = ta[:n_tiles], tb[:n_tiles]
+    if len(ta) != n_tiles:
+        raise AssertionError(f"plan has {len(ta)} tiles, wanted {n_tiles}")
+    f32 = np.float32
+    gn = torch.from_numpy(np.pad(gl.astype(f32), ((0, Sp - S), (0, 0), (0, 0)),
+                                 constant_values=1.0 / 3.0)).to(device)
+    egd = torch.from_numpy(np.pad(eg.astype(f32),
+                                  ((0, Sp - S), (0, 0)))).to(device)
+    tabs = strip_tables(gn, egd, n_ind)
+    m = torch.from_numpy(np.pad(maf.astype(f32), (0, Sp - S),
+                                constant_values=0.5)).to(device)
+    lo = torch.arange(1, Sp + 1, dtype=torch.int32, device=device)
+    hi_d = torch.from_numpy(hi.astype(np.int32)).to(device)
+    ok_d = torch.from_numpy(ok).to(device)
+    args = (*tabs, m, m, lo, hi_d, ok_d, ok_d,
+            torch.from_numpy(ta).to(device), torch.from_numpy(tb).to(device))
+    # live mask on the host, (n, TA, TB), for the dead-cell check
+    A = ta.astype(np.int64)[:, None, None] * TA + np.arange(TA)[None, :, None]
+    B = tb.astype(np.int64)[:, None, None] * TA + np.arange(TA)[None, None, :]
+    live = (B > A) & (B < hi[A]) & (ok[A] > 0) & (ok[B] > 0)
+    # the f0 init of the dead cells, as the kernel computes it: in double
+    # from the f32 MAFs, rounded to f32
+    mp = np.pad(maf.astype(f32), (0, Sp - S),
+                constant_values=0.5).astype(np.float64)
+    dead = ~live
+    ma = mp[np.broadcast_to(A, live.shape)[dead]]
+    mb = mp[np.broadcast_to(B, live.shape)[dead]]
+    f0_dead = np.stack([(1 - ma) * (1 - mb), (1 - ma) * mb, ma * (1 - mb),
+                        ma * mb], axis=1).astype(f32)
+    return args, live, f0_dead
+
+
+def _check_strip(kern, plain, live, f0_dead, label, iter_cap=100):
+    """Strip kernel vs plain version, every cell: n_used and nIter exact,
+    f within F32_TOL with NaN positions equal, r2p within R2P_TOL with NaN
+    positions equal; dead cells at the f0 init with nIter == iter_cap."""
+    fk, rk, itk, nuk = (t.cpu().numpy() for t in kern)
+    fp, rp, itp, nup = (t.cpu().numpy() for t in plain)
+    if not np.array_equal(nuk, nup):
+        raise AssertionError(f"{label}: n_used differs on "
+                             f"{int((nuk != nup).sum())} cells")
+    n_diff = int((itk != itp).sum())
+    if n_diff:
+        raise AssertionError(f"{label}: nIter differs on {n_diff} of "
+                             f"{itp.size} cells")
+    for name, k, p, tol in (("f", fk, fp, F32_TOL), ("r2p", rk, rp, R2P_TOL)):
+        nan_k, nan_p = np.isnan(k), np.isnan(p)
+        if not np.array_equal(nan_k, nan_p):
+            raise AssertionError(f"{label}: {name} NaN positions differ on "
+                                 f"{int((nan_k != nan_p).sum())} values")
+        with np.errstate(invalid="ignore"):
+            err = float(np.max(np.abs(np.where(nan_k, 0, k)
+                                      - np.where(nan_p, 0, p))))
+        if not err <= tol:
+            raise AssertionError(f"{label}: max |{name}_kernel - "
+                                 f"{name}_plain| {err} > {tol}")
+        if name == "f":
+            f_err = err
+        else:
+            r_err = err
+    if not (itk[~live] == iter_cap).all():
+        raise AssertionError(f"{label}: a dead cell iterated")
+    for name, f in (("kernel", fk), ("plain", fp)):
+        if not np.array_equal(np.moveaxis(f, 1, -1)[~live], f0_dead):
+            raise AssertionError(f"{label}: dead cells not at f0 ({name})")
+    x0 = live & (nup == 0)
+    if x0.any() and not (np.isnan(np.moveaxis(fk, 1, -1)[x0]).all()
+                         and (itk[x0] == 0).all()):
+        raise AssertionError(f"{label}: n_used = 0 cells not frozen at "
+                             "nIter 0 with NaN f")
+    print(f"  {label}: max|df| {f_err:.3e} (tol {F32_TOL:g}), max|dr2p| "
+          f"{r_err:.3e} (tol {R2P_TOL:g}), nIter and n_used exact on "
+          f"{itk.size} cells ({int(live.sum())} live, {int(x0.sum())} with "
+          "n_used 0)")
+    return f_err
+
+
 def phase_kernel(card):
     import torch
     from ngsld_tpu_torch.kernels.pair_em import (pair_em_gather,
                                                  pair_em_gather_ref)
+    from ngsld_tpu_torch.kernels.strip_em import strip_em, strip_em_ref
     dev = torch.device("cuda", 0)
     report = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         tag = "f32" if dtype == torch.float32 else "f64"
         gn, sidx, maf = _table(MAIN_I, 20_000, MAIN_P, 5, dtype, dev)
         for ign in (False, True):
-            label = f"{tag} P={MAIN_P} I={MAIN_I} ignore_miss={ign}"
+            label = f"pair_em {tag} P={MAIN_P} I={MAIN_I} ignore_miss={ign}"
             if not ign:
                 ms_k, kern = _time(lambda: pair_em_gather(gn, sidx, maf, ign))
                 ms_p, plain = _time(
@@ -200,11 +335,21 @@ def phase_kernel(card):
                 raise AssertionError(f"{label}: no x = 0 pairs in the case")
             if not ign:
                 evals = int(kern[1].to(torch.int64).sum()) * MAIN_I
+                # bound: the table, the index and the MAFs read once, the
+                # three outputs written once; the EM's double-precision
+                # flops for the updates this data needs
+                esz = gn.element_size()
+                n_bytes = (gn.numel() + maf.numel()) * esz + sidx.numel() * 4 \
+                    + MAIN_P * (4 * esz + 8)
+                need = _needed_evals(kern[1], MAIN_I)
+                b_ms, b_by = _bound(n_bytes, need * FLOPS_PER_EVAL)
                 report[tag] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err,
-                                   evals_per_s=evals / (ms_k / 1e3))
+                                   evals_per_s=evals / (ms_k / 1e3),
+                                   bound_ms=b_ms, bound_by=b_by)
                 print(f"  {label}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms"
-                      f", counted evals/s {evals / (ms_k / 1e3):.4e} "
-                      f"[{card}]")
+                      f", counted evals/s {evals / (ms_k / 1e3):.4e}; bound "
+                      f"{b_ms:.3f} ms by {b_by} ({n_bytes} bytes, {need} "
+                      f"needed evals x {FLOPS_PER_EVAL} flops) [{card}]")
         del gn, sidx, maf
     for n_ind, n_pairs in ((37, 65_536), (1_200, 16_384)):
         gn, sidx, maf = _table(n_ind, 4_000, n_pairs, n_ind, torch.float32,
@@ -212,7 +357,58 @@ def phase_kernel(card):
         for ign in (False, True):
             _check(pair_em_gather(gn, sidx, maf, ign),
                    pair_em_gather_ref(gn, sidx, maf, ign), F32_TOL,
-                   f"f32 P={n_pairs} I={n_ind} ignore_miss={ign}")
+                   f"pair_em f32 P={n_pairs} I={n_ind} ignore_miss={ign}")
+    del gn, sidx, maf
+
+    # ---- strip_em at the strip path's chunk: 256 tiles x I = 100
+    args, live, f0_dead = _strip_case(MAIN_I, STRIP_S, STRIP_TILES, 5, dev)
+    n_diag = int((args[10] == args[11]).sum())
+    for ign in (False, True):
+        label = (f"strip_em tiles={STRIP_TILES} ({n_diag} diagonal) "
+                 f"I={MAIN_I} ignore_miss={ign}")
+        kw = dict(n_ind=MAIN_I, ignore_miss=ign)
+        if not ign:
+            ms_k, kern = _time(lambda: strip_em(*args, **kw))
+            ms_p, plain = _time(lambda: strip_em_ref(*args, **kw))
+        else:
+            kern, plain = strip_em(*args, **kw), strip_em_ref(*args, **kw)
+        err = _check_strip(kern, plain, live, f0_dead, label)
+        if not ign:
+            live_d = torch.from_numpy(live).to(dev)
+            nit_live = kern[2][live_d]
+            evals = int(nit_live.to(torch.int64).sum()) * MAIN_I
+            need = _needed_evals(nit_live, MAIN_I)
+            ga, gb, ea, eb = args[:4]
+            Ip, n = ga.shape[2], STRIP_TILES
+            rows_a = len(torch.unique(args[10])) * 128
+            rows_b = len(torch.unique(args[11])) * 128
+            cells = n * 128 * 128
+            # bound: the table slices of the distinct anchor and partner
+            # tiles read once (3 GL planes + E[G], f32) with their per-site
+            # vectors, the tile list, and the four outputs written once;
+            # flops: the EM updates live cells need, plus the r2p dot of
+            # every cell (2 Ip)
+            n_bytes = (rows_a + rows_b) * Ip * 16 + rows_a * 16 \
+                + rows_b * 8 + n * 8 + cells * (16 + 12)
+            b_ms, b_by = _bound(n_bytes, need * FLOPS_PER_EVAL
+                                + cells * 2 * Ip)
+            report["strip"] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err,
+                                   evals_per_s=evals / (ms_k / 1e3),
+                                   bound_ms=b_ms, bound_by=b_by)
+            print(f"  {label}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
+                  f"counted evals/s over live cells "
+                  f"{evals / (ms_k / 1e3):.4e}; bound {b_ms:.3f} ms by "
+                  f"{b_by} ({n_bytes} bytes, {need} needed evals x "
+                  f"{FLOPS_PER_EVAL} flops) [{card}]")
+    del args
+    for n_ind in (37, 1_200):
+        args, live, f0_dead = _strip_case(n_ind, 2_048, 16, n_ind, dev)
+        for ign in (False, True):
+            kw = dict(n_ind=n_ind, ignore_miss=ign)
+            _check_strip(strip_em(*args, **kw), strip_em_ref(*args, **kw),
+                         live, f0_dead, f"strip_em tiles=16 I={n_ind} "
+                         f"ignore_miss={ign}")
+        del args
     torch.cuda.synchronize()
     return report
 
@@ -228,10 +424,35 @@ def _cli(argv):
     return rc, err.getvalue()
 
 
+@contextlib.contextmanager
+def _env(**kv):
+    """Set environment variables for the length of a block (None unsets)."""
+    old = {k: os.environ.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _read_lines(path):
+    with open(path) as fh:
+        return fh.read().splitlines()
+
+
 def phase_slice(tmp):
-    from ngsld_tpu.utils.simulate import simulate, write_all
-    from ngsld_tpu_torch.kernels import pair_em as kmod
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    from ngsld_tpu_torch.kernels import strip_em as smod
     from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
+    from ngsld_tpu_torch.utils.simulate import simulate, write_all
     files = write_all(simulate(n_ind=24, n_sites=2000, seed=7),
                       os.path.join(tmp, "slice"))
     common = ["--n_ind", "24", "--n_sites", "2000", "--pos", files["pos"],
@@ -244,32 +465,62 @@ def phase_slice(tmp):
         "binary": ["--geno", files["glf"], "--log_scale"],
     }
     for name, inp in variants.items():
-        r_out = os.path.join(tmp, f"port_{name}.ld")
         s_out = os.path.join(tmp, f"strict_{name}.ld")
-        n0 = kmod.LAUNCHES
-        t0 = time.perf_counter()
-        rc, err = _cli(inp + common + ["--out", r_out])
-        t_port = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"{name}: port rc {rc}\n{err}")
-        if ENGINE_TAG not in err:
-            raise AssertionError(f"{name}: engine did not report a cuda "
-                                 f"device:\n{err[:2000]}")
-        if kmod.LAUNCHES <= n0:
-            raise AssertionError(f"{name}: no kernel launch")
         t0 = time.perf_counter()
         rc, err = _cli(inp + common + ["--engine", "strict", "--out", s_out])
         t_strict = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"{name}: strict rc {rc}\n{err}")
-        with open(s_out) as fh:
-            s_lines = fh.read().splitlines()
-        with open(r_out) as fh:
-            r_lines = fh.read().splitlines()
-        cmp_vs_strict(s_lines, r_lines, 1000)
-        print(f"  {name}: {len(r_lines) - 1} rows, pair set byte-exact, "
-              f"f32 contract held; launches +{kmod.LAUNCHES - n0}; port "
-              f"{t_port:.3f} s, strict {t_strict:.3f} s")
+        s_lines = _read_lines(s_out)
+        # each variant through the gather sweep (NGSLD_BLOCK_STRIP=0) and
+        # through the strip sweep (=1); --precision auto is f32 on the card
+        for sweep, flag, ran, idle in (("gather", "0", pmod, smod),
+                                       ("strip", "1", smod, pmod)):
+            r_out = os.path.join(tmp, f"port_{name}_{sweep}.ld")
+            n0, i0 = ran.LAUNCHES, idle.LAUNCHES
+            t0 = time.perf_counter()
+            with _env(NGSLD_BLOCK_STRIP=flag):
+                rc, err = _cli(inp + common + ["--out", r_out])
+            t_port = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"{name}/{sweep}: port rc {rc}\n{err}")
+            if ENGINE_TAG not in err:
+                raise AssertionError(f"{name}/{sweep}: engine did not "
+                                     f"report a cuda device:\n{err[:2000]}")
+            if ran.LAUNCHES <= n0 or idle.LAUNCHES != i0:
+                raise AssertionError(
+                    f"{name}/{sweep}: launches +{ran.LAUNCHES - n0} of the "
+                    f"{sweep} kernel, +{idle.LAUNCHES - i0} of the other")
+            r_lines = _read_lines(r_out)
+            cmp_vs_strict(s_lines, r_lines, 1000)
+            print(f"  {name}/{sweep}: {len(r_lines) - 1} rows, pair set "
+                  f"byte-exact, f32 contract held; launches "
+                  f"+{ran.LAUNCHES - n0}; port {t_port:.3f} s, strict "
+                  f"{t_strict:.3f} s")
+
+    # all-pairs fixture: flat and compact strip emission, byte-equal
+    files = write_all(simulate(n_ind=12, n_sites=384, seed=9,
+                               contig_kb=500.0), os.path.join(tmp, "allp"))
+    argv = ["--geno", files["beagle"], "--probs", "--n_ind", "12",
+            "--n_sites", "384", "--pos", files["pos"], "--max_kb_dist", "0",
+            "--extend_out", "--verbose", "0"]
+    outs = {}
+    for mode in ("compact", "flat"):
+        out = os.path.join(tmp, f"allp_{mode}.ld")
+        n0 = smod.LAUNCHES
+        with _env(NGSLD_BLOCK_STRIP="1", NGSLD_STRIP_EMIT=mode):
+            rc, err = _cli(argv + ["--out", out])
+        if rc != 0 or smod.LAUNCHES <= n0:
+            raise AssertionError(f"all-pairs {mode}: rc {rc}, strip launches "
+                                 f"+{smod.LAUNCHES - n0}\n{err}")
+        with open(out, "rb") as fh:
+            outs[mode] = fh.read()
+    if outs["flat"] != outs["compact"] or \
+            outs["flat"].count(b"\n") != 1 + 384 * 383 // 2:
+        raise AssertionError("all-pairs: flat and compact emission differ, "
+                             "or a row is missing")
+    print(f"  all-pairs 12 x 384: {outs['flat'].count(b'\n') - 1} rows, "
+          "flat emission byte-equal to compact")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -303,31 +554,12 @@ class _CountingStdout:
         pass
 
 
-def phase_real(tmp, card):
-    from ngsld_tpu.cli import params_from_args
-    from ngsld_tpu.io.writer import RowWriter
-    from ngsld_tpu.plan.band import iter_pair_blocks
-    from ngsld_tpu.refine import StrictRefiner
-    from ngsld_tpu.strict import read_pos
-    from ngsld_tpu.utils.simulate import simulate, write_beagle, write_pos
-    from ngsld_tpu_torch.kernels import pair_em as kmod
-    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
-
-    n_ind, n_sites = REAL_I, REAL_S
-    t0 = time.perf_counter()
-    # the 25k fixture of bench.py (_fixture_25k: contig_kb=500), as beagle
-    sim = simulate(n_ind=n_ind, n_sites=n_sites, seed=17, contig_kb=500.0)
-    d = os.path.join(tmp, "real")
-    os.makedirs(d, exist_ok=True)
-    geno, pos = os.path.join(d, "sim.beagle.gz"), os.path.join(d, "sim.pos")
-    write_beagle(sim, geno)
-    write_pos(sim, pos)
-    print(f"  fixture written in {time.perf_counter() - t0:.3f} s")
-    argv = ["--geno", geno, "--probs", "--n_ind", str(n_ind), "--n_sites",
-            str(n_sites), "--pos", pos, "--max_kb_dist", "100",
-            "--extend_out", "--verbose", "2"]
-
-    # the host plan the run must emit (min_maf 0: the MAF filter passes all)
+def _plan(argv, pos, n_sites):
+    """The host plan a run must emit at min_maf 0 (the MAF filter passes
+    all): (pars, pairs, gather blocks)."""
+    from ngsld_tpu_torch.cli import params_from_args
+    from ngsld_tpu_torch.plan.band import iter_pair_blocks
+    from ngsld_tpu_torch.strict import read_pos
     pars = params_from_args(argv)
     pos_dist, _ = read_pos(pos, False, n_sites)
     n_pairs = n_blocks = 0
@@ -335,33 +567,45 @@ def phase_real(tmp, card):
                                 block_pairs=pars.chunk_pairs):
         n_pairs += len(blk.s1)
         n_blocks += 1
-    print(f"  plan: {n_pairs} pairs in {n_blocks} blocks")
+    return pars, n_pairs, n_blocks
 
+
+def _counted_run(argv, tmp, n_pairs, strip):
+    """One run of the port's CLI with rows to a counting sink, the kernels'
+    launch counts set to 0 just before it and read just after. strip:
+    "1"/"0" forces the sweep, None leaves the engine's auto rule."""
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    from ngsld_tpu_torch.kernels import strip_em as smod
     timings = os.path.join(tmp, "timings.json")
-    os.environ["NGSLD_TIMINGS_JSON"] = timings
     sink = _CountingStdout(keep_every=max(1, n_pairs // 1000))
     real_stdout = sys.stdout
-    kmod.LAUNCHES = 0            # the main path's count starts here
+    pmod.LAUNCHES = smod.LAUNCHES = 0   # the path's counts start here
     t0 = time.perf_counter()
     try:
         sys.stdout = sink
-        rc, err = _cli(argv)   # its rows are on the host: no sync needed
+        with _env(NGSLD_TIMINGS_JSON=timings, NGSLD_BLOCK_STRIP=strip):
+            rc, err = _cli(argv)   # its rows are on the host: no sync needed
     finally:
         sys.stdout = real_stdout
-        os.environ.pop("NGSLD_TIMINGS_JSON", None)
     wall = time.perf_counter() - t0
-    launches = kmod.LAUNCHES     # ... and is read here
+    launches = dict(pair_em=pmod.LAUNCHES, strip_em=smod.LAUNCHES)  # read
     if rc != 0:
-        raise AssertionError(f"real-size run rc {rc}\n{err[-4000:]}")
+        raise AssertionError(f"run rc {rc}\n{err[-4000:]}")
     if sink._tail:
         raise AssertionError("output does not end with a newline")
     if sink.n_lines != 1 + n_pairs:
         raise AssertionError(f"{sink.n_lines} lines, expected 1 + {n_pairs}")
-    if launches != n_blocks:
-        raise AssertionError(f"{launches} kernel launches for {n_blocks} "
-                             "blocks")
+    with open(timings) as fh:
+        tim = json.load(fh)
+    return sink, wall, launches, tim, err
 
-    # spot check: ~1000 evenly spaced rows against strict recomputes
+
+def _sample_vs_strict(sink, sim, pars):
+    """The sink's kept rows (about 1,000, evenly spaced) against strict
+    recomputes of the same pairs, under the f32 column contract."""
+    from ngsld_tpu_torch.io.writer import RowWriter
+    from ngsld_tpu_torch.refine import StrictRefiner
+    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
     labels = [f"{c}:{p}" for c, p in zip(sim.chrom, sim.pos)]
     site = {lab: i for i, lab in enumerate(labels)}
     rows = sink.kept[1:]
@@ -378,23 +622,108 @@ def phase_real(tmp, card):
         chi2=ref["chi2"], n_iter=ref["n_iter"])
     s_lines = [sink.kept[0]] + data.decode().splitlines()
     cmp_vs_strict(s_lines, sink.kept, 100)
+    return len(rows)
 
-    with open(timings) as fh:
-        tim = json.load(fh)
-    print(f"  {sink.n_lines - 1} rows ({sink.n_bytes} bytes), {launches} "
-          f"launches = blocks, {len(rows)} sampled rows within the f32 "
-          "contract of strict")
+
+def phase_real(tmp, card):
+    import dataclasses
+
+    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
+    from ngsld_tpu_torch.utils.simulate import (simulate, write_beagle,
+                                                write_pos)
+
+    n_ind, n_sites = REAL_I, REAL_S
+    t0 = time.perf_counter()
+    # the 25k fixture of bench.py (_fixture_25k: contig_kb=500), as beagle,
+    # and its first 10,000 sites as a second pair of files
+    sim = simulate(n_ind=n_ind, n_sites=n_sites, seed=17, contig_kb=500.0)
+    cut = dataclasses.replace(
+        sim, n_sites=GATHER_S, genos=sim.genos[:GATHER_S],
+        gl=sim.gl[:GATHER_S], chrom=sim.chrom[:GATHER_S],
+        pos=sim.pos[:GATHER_S])
+    d = os.path.join(tmp, "real")
+    os.makedirs(d, exist_ok=True)
+    geno, pos = os.path.join(d, "sim.beagle.gz"), os.path.join(d, "sim.pos")
+    geno_c, pos_c = os.path.join(d, "cut.beagle.gz"), os.path.join(d, "cut.pos")
+    for sm, g, p in ((sim, geno, pos), (cut, geno_c, pos_c)):
+        write_beagle(sm, g)
+        write_pos(sm, p)
+    print(f"  fixtures written in {time.perf_counter() - t0:.3f} s")
+
+    def argv_for(g, p, n):
+        return ["--geno", g, "--probs", "--n_ind", str(n_ind), "--n_sites",
+                str(n), "--pos", p, "--max_kb_dist", "100", "--extend_out",
+                "--verbose", "2"]
+
+    # ---- the dense main path at full width: the engine's auto rule must
+    # take the strip sweep (NGSLD_BLOCK_STRIP unset)
+    argv = argv_for(geno, pos, n_sites)
+    pars, n_pairs, n_blocks = _plan(argv, pos, n_sites)
+    print(f"  plan: {n_pairs} pairs ({n_blocks} gather blocks)")
+    sink, wall, launches, tim, err = _counted_run(argv, tmp, n_pairs, None)
+    chunks = tim["counters"]["blocks_computed"]
+    if "==> strip sweep:" not in err:
+        raise AssertionError("the auto rule did not take the strip sweep:\n"
+                             + err[-3000:])
+    if launches["strip_em"] != chunks or chunks < 1 or launches["pair_em"]:
+        raise AssertionError(f"launches {launches} for {chunks} strip chunks")
+    n_rows = _sample_vs_strict(sink, sim, pars)
+    plan_line = [ln for ln in err.splitlines() if "==> strip sweep:" in ln][0]
+    print(f"  {plan_line.strip()}")
+    print(f"  strip: {sink.n_lines - 1} rows ({sink.n_bytes} bytes), "
+          f"{launches['strip_em']} strip launches = chunks, 0 gather "
+          f"launches, {n_rows} sampled rows within the f32 contract of "
+          "strict")
     print(f"  wall {wall:.3f} s, {n_pairs / wall:.4e} pairs/s [{card}]")
     print("  phases: " + json.dumps(tim["phases"]))
     print("  stages: " + json.dumps(tim["stages"]))
     print("  counters: " + json.dumps(tim["counters"]))
-    return dict(launches=launches, wall=wall, pairs=n_pairs, argv=argv)
+    real = dict(strip_launches=launches["strip_em"], wall=wall, pairs=n_pairs,
+                argv=argv)
+
+    # ---- the gather path, driven again at 10,000 sites of the same
+    # fixture, and the strip sweep on the same sites beside it
+    argv_c = argv_for(geno_c, pos_c, GATHER_S)
+    pars_c, n_pairs_c, n_blocks_c = _plan(argv_c, pos_c, GATHER_S)
+    sink, wall_g, launches, tim, _ = _counted_run(argv_c, tmp, n_pairs_c, "0")
+    if launches["pair_em"] != n_blocks_c or launches["strip_em"]:
+        raise AssertionError(f"launches {launches} for {n_blocks_c} gather "
+                             "blocks")
+    n_rows = _sample_vs_strict(sink, cut, pars_c)
+    print(f"  gather, {GATHER_S} sites: {n_pairs_c} rows, "
+          f"{launches['pair_em']} gather launches = blocks, 0 strip "
+          f"launches, {n_rows} sampled rows within the f32 contract of "
+          f"strict; wall {wall_g:.3f} s [{card}]")
+    real["gather_launches"] = launches["pair_em"]
+    outs = {}
+    for sweep, flag in (("gather", "0"), ("strip", "1")):
+        out = os.path.join(d, f"cut_{sweep}.ld")
+        with _env(NGSLD_BLOCK_STRIP=flag):
+            rc, err = _cli(argv_c[:-2] + ["--verbose", "0", "--out", out])
+        if rc != 0:
+            raise AssertionError(f"{sweep} at {GATHER_S} sites: rc {rc}\n"
+                                 + err[-3000:])
+        outs[sweep] = _read_lines(out)
+    # identical pair set and order, values within the f32 contract: rows
+    # that are byte-equal hold both; the rest go through cmp_vs_strict,
+    # which holds their first three columns byte-equal
+    g, st = outs["gather"], outs["strip"]
+    if len(g) != 1 + n_pairs_c or len(st) != len(g) or g[0] != st[0]:
+        raise AssertionError(f"gather {len(g)} lines, strip {len(st)}, plan "
+                             f"{n_pairs_c} pairs")
+    diff = [(a, b) for a, b in zip(g, st) if a != b]
+    cmp_vs_strict(g[:1] + [a for a, _ in diff], st[:1] + [b for _, b in diff],
+                  0)
+    print(f"  gather vs strip, {GATHER_S} sites: {n_pairs_c} rows, same pairs "
+          f"in the same order, {n_pairs_c - len(diff)} rows byte-equal, the "
+          f"other {len(diff)} within the f32 contract")
+    return real
 
 
 # ---------------------------------------------------------------- phase 6
 
 def phase_idle(tmp, card, real):
-    """The phase 5 run again, under torch.profiler, rows to a file:
+    """The phase 5 strip run again, under torch.profiler, rows to a file:
     device busy time = the union of the trace's kernel/memcpy/memset
     intervals, idle share = 1 - busy / wall."""
     from ngsld_tpu_torch.utils.devtrace import profile_busy
@@ -405,11 +734,12 @@ def phase_idle(tmp, card, real):
         lambda: _cli(argv))
     if rc != 0:
         raise AssertionError(f"profiled run rc {rc}\n{err[-4000:]}")
-    em = sum(v for k, v in by_kernel.items() if "pair_em_kernel" in k)
+    em = sum(v for k, v in by_kernel.items() if "strip_em_kernel" in k)
     if not em > 0:
-        raise AssertionError("no pair_em_kernel interval in the trace")
+        raise AssertionError("no strip_em_kernel interval in the trace")
     print(f"  wall {wall:.3f} s, device busy {busy:.6f} s (union of "
-          f"intervals), idle share {1 - busy / wall:.6f} [{card}]")
+          f"intervals), idle share {1 - busy / wall:.6f}; strip_em_kernel "
+          f"{em:.6f} s [{card}]")
     print("  device s by category: " + json.dumps(by_cat))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     print("  top kernels (s): " + json.dumps(dict(top)))
@@ -435,13 +765,20 @@ def main() -> int:
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    f32 = rep["f32"]
-    print(json.dumps({"kernels": [{
-        "name": "pair_em_gather", "route": "cuda",
-        "source": "ngsld_tpu_torch/csrc/pair_em.cu",
-        "replaces": "ngsld_tpu/kernels/pallas_em.py:57",
-        "launches": real["launches"], "max_abs_err": f32["max_abs_err"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"]}]}))
+    f32, strip = rep["f32"], rep["strip"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # library_ms: no single PyTorch call computes either function
+    print(json.dumps({"kernels": [
+        {"name": "pair_em_gather", "route": "cuda",
+         "source": "ngsld_tpu_torch/csrc/pair_em.cu",
+         "replaces": "ngsld_tpu/kernels/pallas_em.py:57",
+         "launches": real["gather_launches"],
+         **{k: f32[k] for k in keys}, "library_ms": None},
+        {"name": "strip_em", "route": "cuda",
+         "source": "ngsld_tpu_torch/csrc/strip_em.cu",
+         "replaces": "ngsld_tpu/kernels/pallas_strip.py:58",
+         "launches": real["strip_launches"],
+         **{k: strip[k] for k in keys}, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,20 @@
-"""Gathered-pair block step of the sweep (ngsld_tpu/compute.py:14-28,
-64-123, single device).
+"""Device steps of the sweep, single device (ngsld_tpu/compute.py): the
+gathered-pair block step (:14-28, 64-123) and the strip-chunk steps
+(:139-172).
 
-The site tables stay on the device; per block only the (2, P) index
-crosses over, and only (r2p, hap freqs) plus int metadata come back. The
-other columns (D, D', r2, hap MAFs, chi2) derive on the host
-(ngsld_tpu.engine_block._stats_host/_chi2_host)."""
+The site tables stay on the device; per block only the (2, P) index (or
+the chunk's tile list and sel) crosses over, and only (r2p, hap freqs)
+plus int metadata come back. The other columns (D, D', r2, hap MAFs, chi2)
+derive on the host (hostcols._stats_host/_chi2_host)."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .kernels.pair_em import pair_em_gather
+from .kernels.strip_em import strip_em_compact, strip_em_flat
 from .ops.stats import pearson_r2
 
 
@@ -36,3 +40,21 @@ def compute_block(gn: torch.Tensor, eg: torch.Tensor, maf: torch.Tensor,
     f, n_iter, n_used = pair_em_gather(gn, sidx, maf, ignore_miss_data)
     fmat = torch.cat([r2p[:, None].to(f.dtype), f], dim=1)
     return fmat, _imat(n_iter, n_used, ignore_miss_data, gn.shape[1])
+
+
+def strip_flat_fn(n_ind: int, ignore_miss: bool, use_i16: bool):
+    """Flat cell-major strip step: the kernel's tile outputs relayout to
+    dense (cells, 5)/(cells, k) rows with no device gather; the host
+    applies the chunk's sel permutation in the pull stage. For chunks
+    whose live-cell fraction is near 1."""
+    return functools.partial(strip_em_flat, n_ind=n_ind,
+                             ignore_miss=ignore_miss, use_i16=use_i16,
+                             slim_im=not ignore_miss)
+
+
+def strip_compute_fn(n_ind: int, ignore_miss: bool, use_i16: bool):
+    """Compacted strip step: the tile kernel, then the sel gather on the
+    device, so only the chunk's live rows come back."""
+    return functools.partial(strip_em_compact, n_ind=n_ind,
+                             ignore_miss=ignore_miss, use_i16=use_i16,
+                             slim_im=not ignore_miss)

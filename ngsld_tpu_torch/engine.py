@@ -1,15 +1,17 @@
-"""PyTorch engine driver: the default single-device run.
+"""PyTorch engine entry point: the default single-device run.
 
-Device: CUDA when available (the pair EM then runs in the hand-written
-kernel), else the CPU with the kernels' plain PyTorch twins;
-NGSLD_PLATFORM=cpu pins the CPU. Precision mirrors
-ngsld_tpu.engine._resolve_precision with CUDA in the TPU's place: auto is
-f32 on CUDA and f64 on the CPU.
+Device: the CUDA card (the EM then runs in the hand-written kernels),
+unless the caller asks for the CPU with NGSLD_PLATFORM=cpu (the kernels'
+plain PyTorch versions). Without a CUDA device and without that request
+the run is refused with a StrictError: the engine never picks the CPU by
+itself. Precision mirrors ngsld_tpu/engine.py::_resolve_precision with
+CUDA in the TPU's place: auto is f32 on CUDA and f64 on the CPU.
 
-This slice runs the gathered-pair sweep on one device. Options that need
-a part not ported yet raise StrictError naming it: --shard/--shard_ind
-resolving to more than one device, --ring, --profile (a JAX profiler
-trace) and NGSLD_BLOCK_STRIP=1 (the strip sweep).
+The sweep runs on one device, as gathered pair blocks or as dense strip
+tiles (engine_block picks; NGSLD_BLOCK_STRIP=1/0 forces). Options that
+need a part not ported yet raise StrictError naming it:
+--shard/--shard_ind resolving to more than one device, --ring and
+--profile (a JAX profiler trace).
 """
 
 from __future__ import annotations
@@ -19,17 +21,19 @@ import sys
 
 import torch
 
-from ngsld_tpu.config import Params
-from ngsld_tpu.strict import StrictError
-from ngsld_tpu.utils.logging import RunLog, echo_config
-
+from .config import Params
 from .engine_block import _run_torch_body
+from .strict import StrictError
+from .utils.logging import RunLog, echo_config
 
 
 def _resolve_device() -> torch.device:
-    if os.environ.get("NGSLD_PLATFORM") == "cpu" or \
-            not torch.cuda.is_available():
+    if os.environ.get("NGSLD_PLATFORM") == "cpu":
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise StrictError(
+            "device", "no CUDA device is available; the torch engine runs "
+            "on the card unless NGSLD_PLATFORM=cpu asks for the CPU")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -55,9 +59,6 @@ def _refuse_unported(pars: Params, device: torch.device) -> None:
     if pars.profile:
         raise StrictError("profile", "--profile writes a JAX profiler trace; "
                           "not available in the torch engine")
-    if os.environ.get("NGSLD_BLOCK_STRIP") == "1":
-        raise StrictError("strip", "NGSLD_BLOCK_STRIP=1: the strip sweep is "
-                          "not ported to the torch engine")
 
 
 def run_torch(pars: Params, out_fh=None) -> None:

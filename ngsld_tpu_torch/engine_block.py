@@ -1,21 +1,30 @@
-"""Single-device gathered-pair block sweep: the gather branch of
-ngsld_tpu/engine_block._run_jax_body in PyTorch.
+"""Single-device block sweep: ngsld_tpu/engine_block._run_jax_body in
+PyTorch, with its two sweep modes.
 
   host: read GLs (strict.read_geno) and positions (strict.read_pos)
   dev:  upload once, preprocess (call_geno, MAF, normal-space GLs, E[G])
   host: MAF to host (f64 copy), knife-edge MAF repair, banded pair plan
         (plan.band.iter_pair_blocks) on a prefetch thread
-  dev:  per block: one (2, P) int32 index upload, Pearson r2 + pair EM
-        (compute.compute_block; the EM is the CUDA kernel on a GPU)
-  host: 3-stage emit pipeline — pull -> derive + format (native) -> write
-        — rows in (s1, s2) order; degenerate pairs take refine's tiers
+  dev:  gather mode, per block: one (2, P) int32 index upload, Pearson r2
+        + pair EM (compute.compute_block)
+        strip mode, per chunk of <= GMAXT tiles: the tile list (and sel)
+        upload, rectangle EM + r2 (compute.strip_compute_fn/strip_flat_fn)
+        from strip tables built once on the device
+  host: 3-stage emit pipeline (pull -> derive + format (native) -> write),
+        rows in (s1, s2) order; degenerate pairs take refine's tiers
 
-The host stages are ngsld_tpu's own code, reused unchanged.
+Strip mode is f32-only and is picked when the plan is dense over its
+rectangles (effective utilization >= NGSLD_STRIP_MIN_UTIL on a CUDA
+device); NGSLD_BLOCK_STRIP=1/0 forces it on/off. Both modes regroup the
+same iter_pair_blocks stream, so their pair sets are identical by
+construction. A strip kernel that fails to build or launch ends the run
+with its error: there is no retry on the gather sweep.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import queue
 import threading
 import time
@@ -23,17 +32,23 @@ import time
 import numpy as np
 import torch
 
-from ngsld_tpu import strict
-from ngsld_tpu.checkpoint import _Checkpoint
-from ngsld_tpu.engine_block import _prefetch_blocks, _unpack
-from ngsld_tpu.io.writer import RowWriter
-from ngsld_tpu.plan.band import iter_pair_blocks
-from ngsld_tpu.refine import (StrictRefiner, degenerate_tiers,
-                              derive_columns_f64, knife_edge_sites)
-from ngsld_tpu.utils.signals import GracefulStop
-
-from . import compute
+from . import compute, strict
+from .checkpoint import _Checkpoint
+from .hostcols import _prefetch_blocks, _unpack
+from .io.writer import RowWriter
+from .kernels.strip_em import strip_tables
+from .native import (LabelBlob, format_rows_derive, get_lib,
+                     make_labels_blob)
 from .ops.preprocess import preprocess
+from .plan.band import PairBlock, band_limits, iter_pair_blocks
+from .plan.strips import TA, TB, strip_plan
+from .refine import (StrictRefiner, degenerate_tiers, derive_columns_f64,
+                     knife_edge_sites)
+from .utils.signals import GracefulStop
+
+# pipeline-stage return sentinel: "nothing to forward downstream yet"
+# (the fmt stage is accumulating chunks of a split anchor-tile group)
+_PENDING = object()
 
 
 def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
@@ -98,14 +113,74 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                        f"({gn0[s,0]:f} {gn0[s,1]:f} {gn0[s,2]:f})")
 
     chunk = int(pars.chunk_pairs)
+
+    # ---- sweep-mode selection: dense strip-tile rectangles vs gathered
+    # pair blocks (ngsld_tpu/engine_block.py:286-334). Auto rule:
+    # effective utilization (live-cell fraction x sampling rate: sampled-
+    # out cells still burn EM compute) at least NGSLD_STRIP_MIN_UTIL, on a
+    # CUDA device. NGSLD_BLOCK_STRIP=1/0 forces on/off.
+    strip_mode = False
+    strip_env = os.environ.get("NGSLD_BLOCK_STRIP")
+    if strip_env != "0" and prec == "f32":
+        hi_b = band_limits(pos_dist, pars.max_kb_dist, pars.max_snp_dist)
+        ok_b = ~(maf < pars.min_maf)
+        # padded to whole anchor tiles; pad sites are not ok. (The TPU
+        # engine adds one more all-dead partner tile to aim the padding
+        # slots of a fixed-size dispatch at; here a dispatch launches
+        # exactly its chunk's tiles.)
+        Sp_b = -(-pars.n_sites // TA) * TA
+        hi_p = np.zeros(Sp_b, np.int64)
+        hi_p[:pars.n_sites] = hi_b
+        ok_p = np.zeros(Sp_b, np.float32)
+        ok_p[:pars.n_sites] = ok_b
+        s_ta, s_tb, _, s_util = strip_plan(hi_p, ok_p, pars.n_sites, TA, TB)
+        u_eff = s_util * pars.rnd_sample
+        min_util = float(os.environ.get("NGSLD_STRIP_MIN_UTIL", "0.08"))
+        strip_mode = len(s_ta) > 0 and (
+            strip_env == "1"
+            or (device.type == "cuda" and u_eff >= min_util))
+        if len(s_ta) and not strip_mode and pars.verbose >= 2:
+            log.log(2, f"==> strip sweep skipped: eff util {u_eff:.3f} < "
+                       f"{min_util} (gather path)")
+    if strip_mode:
+        with log.phase("strip tables (device)"):
+            pad = Sp_b - pars.n_sites
+            s_ga, s_gb, s_ea, s_eb = strip_tables(
+                torch.nn.functional.pad(gn_d, (0, 0, 0, 0, 0, pad),
+                                        value=1.0 / 3.0),
+                torch.nn.functional.pad(eg_d, (0, 0, 0, pad)), pars.n_ind)
+            # the gather tables are dead weight in strip mode
+            del gn_d, eg_d, maf_d
+        s_maf = torch.from_numpy(np.pad(
+            np.asarray(maf, np.float32), (0, pad),
+            constant_values=0.5)).to(device)
+        s_lo = torch.arange(1, Sp_b + 1, dtype=torch.int32, device=device)
+        s_hi = torch.from_numpy(hi_p.astype(np.int32)).to(device)
+        s_ok = torch.from_numpy(ok_p).to(device)
+        # per-dispatch budgets: up to GMAXT tiles (the device output f is
+        # (tiles, 4, TA, TB) f32, 67 MB at 256) and about CTARGET pairs per
+        # chunk: narrow-band groups batch together so a dispatch carries
+        # real work, oversized groups split into <= GMAXT-tile pieces
+        GMAXT = max(1, min(len(s_ta), int(os.environ.get(
+            "NGSLD_STRIP_TILES", "256"))))
+        CTARGET = int(os.environ.get("NGSLD_STRIP_CTARGET", str(1 << 20)))
+        TA_TB = TA * TB
+        log.log(2, f"==> strip sweep: {len(s_ta)} tiles, chunk<= {GMAXT} "
+                   f"tiles/{CTARGET} pairs, util {s_util:.2f}")
+
     ckpt = None
     if pars.checkpoint:
-        # the fingerprint pins the block decomposition and the EM
-        # precision: shards from another of either must not be mixed
-        ckpt = _Checkpoint(pars.checkpoint, pars, log,
-                           extra={"chunk": chunk, "prec": prec})
+        # the fingerprint pins the sweep decomposition (gather mode's
+        # chunk, strip mode's tile-chunk geometry) and the EM precision:
+        # shards from another of either must not be mixed. "order": split
+        # groups merge to anchor-major rows under their final block index.
+        if strip_mode:
+            extra = {"mode": "strip", "ta": TA, "tb": TB, "gmaxt": GMAXT,
+                     "ctarget": CTARGET, "order": "anchor", "prec": prec}
+        else:
+            extra = {"chunk": chunk, "prec": prec}
+        ckpt = _Checkpoint(pars.checkpoint, pars, log, extra=extra)
         # per-block RowWriters share one label blob (O(n_sites) to build)
-        from ngsld_tpu.native import LabelBlob, get_lib, make_labels_blob
         if get_lib() is not None:
             labels = LabelBlob(*make_labels_blob(labels))
     writer = None
@@ -115,20 +190,52 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
     fmt_rw = writer if writer is not None \
         else RowWriter(None, labels, pars.extend_out)
 
-    def pull(bi, blk, dev_out):
+    def pull(bi, blk, dev_out, meta=None, flat_sel=None):
         """Stage 1: device results -> host numpy (waits for the block's
-        kernels on the current stream)."""
+        kernels on the current stream). Compacted strip chunks and gather
+        blocks bring exactly their live rows; flat strip chunks (flat_sel)
+        bring their whole tile rectangle and the sel permutation applies
+        here as a numpy take."""
         t0 = time.perf_counter()
         fm = dev_out[0].cpu().numpy()
         im = dev_out[1].cpu().numpy()
+        if flat_sel is not None:
+            fm, im = fm[flat_sel], im[flat_sel]
         log.count_time("sweep: result pull", time.perf_counter() - t0)
-        return bi, blk, fm, im
+        return bi, blk, fm, im, meta
 
-    def fmt(bi, blk, fm, im):
+    pending = []   # pulled chunks of an in-flight split anchor group
+
+    def fmt(bi, blk, fm, im, meta=None):
         """Stage 2 (CPU): derive stats, format rows to bytes. Degenerate
         pairs (refine.degenerate_tiers) take the strict recompute (tier 1)
         or the f64 re-derive (tier 2) as override columns of the same
-        native derive+format call."""
+        native derive+format call.
+
+        A split anchor-tile group's chunks (strip sweep, partner span >
+        GMAXT*TB sites) arrive window-major; they accumulate here
+        (meta="cont") and merge back into global (s1, s2) row order when
+        the final chunk lands (meta=("final", run_first)); host memory
+        for the merge is O(the group's rows)."""
+        span0 = None
+        if meta == "cont":
+            pending.append((blk, fm, im))
+            return _PENDING
+        if meta is not None:
+            span0 = meta[1]
+            if pending:
+                blks = [p[0] for p in pending] + [blk]
+                blk = PairBlock(
+                    s1=np.concatenate([b.s1 for b in blks]),
+                    s2=np.concatenate([b.s2 for b in blks]),
+                    dist=np.concatenate([b.dist for b in blks]))
+                fm = np.concatenate([p[1] for p in pending] + [fm])
+                im = np.concatenate([p[2] for p in pending] + [im])
+                pending.clear()
+                order = np.lexsort((blk.s2, blk.s1))
+                blk = PairBlock(s1=blk.s1[order], s2=blk.s2[order],
+                                dist=blk.dist[order])
+                fm, im = fm[order], im[order]
         t0 = time.perf_counter()
         n_iter = im[:, 0].astype(np.int32)
         if im.shape[1] > 1:
@@ -190,7 +297,6 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                 log.count_time("sweep: fmt/refine", time.perf_counter() - tr)
             tf = time.perf_counter()
             if use_native:
-                from ngsld_tpu.native import format_rows_derive
                 data = format_rows_derive(
                     fmt_rw.blob, fmt_rw.off, blk.s1, blk.s2, blk.dist,
                     fm[:, 0], fm[:, 1:5], maf[blk.s1], maf[blk.s2], n_used,
@@ -211,7 +317,6 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
         elif fmt_rw.native:
             # single native pass: D/D'/r2/hap-MAFs/chi2 derive inside the
             # formatter's worker threads from (r2p, f) directly
-            from ngsld_tpu.native import format_rows_derive
             data = format_rows_derive(
                 fmt_rw.blob, fmt_rw.off, blk.s1, blk.s2, blk.dist,
                 fm[:, 0], fm[:, 1:5], maf[blk.s1], maf[blk.s2], n_used,
@@ -225,15 +330,25 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                 maf2=maf[blk.s2], hap=f, hmaf1=hmaf0, hmaf2=hmaf1,
                 chi2=chi2, n_iter=n_iter64.astype(np.int32))
         log.count_time("sweep: format", time.perf_counter() - t0)
-        return bi, data
+        return bi, data, span0
 
-    def write(bi, data):
-        """Stage 3 (disk IO): write rows, or commit a checkpoint shard."""
+    def write(bi, data, span0=None):
+        """Stage 3 (disk IO): write rows, or commit a checkpoint shard.
+
+        A merged split group writes all its rows under its FINAL bi, then
+        commits empty placeholder shards for the run's earlier bis
+        (concatenate needs a dense block range; resume treats
+        done(final_bi) as group-done and re-ensures placeholders)."""
         t0 = time.perf_counter()
         if ckpt is not None:
             with ckpt.open_block(bi) as bfh:
                 bfh.write(data)
             ckpt.commit_block(bi)
+            if span0 is not None:
+                for j in range(span0, bi):
+                    with ckpt.open_block(j):
+                        pass
+                    ckpt.commit_block(j)
         else:
             try:
                 out_fh.write(data)
@@ -267,6 +382,8 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                     if out_q is not None:
                         out_q.put(None)
                     return
+                if res is _PENDING:
+                    continue   # fmt is accumulating a split group
                 if out_q is not None:
                     out_q.put(res)
         t = threading.Thread(target=run, daemon=True, name=name)
@@ -279,47 +396,230 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
     n_blocks = 0
     interrupted = False
     with log.phase("compute: banded pair sweep"), GracefulStop(log) as gs:
-        blocks_it = enumerate(_prefetch_blocks(
-            iter_pair_blocks(pars, maf, pos_dist, block_pairs=chunk)))
-        try:
-            while True:
-                t_top = time.perf_counter()
-                try:
-                    bi, blk = next(blocks_it)
-                except StopIteration:
-                    break
-                log.count_time("sweep: plan wait",
-                               time.perf_counter() - t_top)
-                n_blocks = bi + 1
-                if gs.stopped or emit_err:
-                    interrupted = not emit_err
-                    break
-                if ckpt is not None and ckpt.done(bi):
-                    log.count("blocks_resumed")
-                    continue
-                P = len(blk.s1)
-                log.count("pairs_emitted", P)
-                log.count("blocks_computed")
-                if pars.verbose >= 3:
-                    log.log(3, f"> Block {bi}: anchors "
-                               f"{blk.s1[0]}..{blk.s1[-1]}, {P} pairs")
-                t0 = time.perf_counter()
-                # one fused (2, P) index upload per block; exactly P pairs
-                # launch and P rows come back (no padding quantum)
-                sidx = torch.from_numpy(
-                    np.stack([blk.s1, blk.s2]).astype(np.int32)).to(device)
-                dev_out = compute.compute_block(
-                    gn_d, eg_d, maf_d, sidx, pars.ignore_miss_data)  # async
-                log.count_time("sweep: dispatch", time.perf_counter() - t0)
-                emit_q.put((bi, blk, dev_out))
-        finally:
-            # always shut the pipeline down, even when the loop raises:
-            # stages blocked on get() would otherwise pin device buffers
-            emit_q.put(None)
-            for t in stages:
-                t.join()
-        if emit_err:
-            raise emit_err[0]
+        if strip_mode:
+            use_i16 = pars.n_ind <= 32767
+            strip_fn = compute.strip_compute_fn(
+                pars.n_ind, pars.ignore_miss_data, use_i16)
+            # flat cell-major emission for near-full chunks: one relayout
+            # on the device and a host-side numpy take in the (pipelined)
+            # pull stage instead of the device sel gather. Pull bytes then
+            # scale with CELLS, so only chunks with live/cells >= the
+            # threshold qualify. NGSLD_STRIP_EMIT=compact|flat|auto.
+            strip_flat_fn = None
+            flat_util = 1.1
+            emit_mode = os.environ.get("NGSLD_STRIP_EMIT", "auto")
+            if emit_mode != "compact":
+                strip_flat_fn = compute.strip_flat_fn(
+                    pars.n_ind, pars.ignore_miss_data, use_i16)
+                flat_util = (-1.0 if emit_mode == "flat" else float(
+                    os.environ.get("NGSLD_STRIP_FLAT_UTIL", "0.92")))
+
+            def strip_chunks():
+                """Regroup the banded pair stream (iter_pair_blocks, the
+                SAME plan source as the gather sweep, so the pair sets are
+                identical by construction, sampling included) by anchor
+                tile; BATCH whole anchor-tile groups (splitting oversized
+                ones) into dispatch chunks of <= GMAXT tiles / about
+                CTARGET pairs. Yields (ta_slots, tb_slots, sel, PairBlock,
+                rem): rem > 0 marks a chunk whose anchor-tile group
+                continues for `rem` more chunks; its rows are
+                window-major, and the emit pipeline merges the whole run
+                back into global (s1, s2) order before formatting (a split
+                group's non-final pieces span exactly GMAXT tiles, so they
+                never share a chunk with anything else)."""
+                pend = []      # stream pieces of the CURRENT group
+                cur = -1
+                acc = []       # whole group-pieces of the open chunk
+                acc_tiles = acc_pairs = 0
+
+                def flush(rem=0):
+                    nonlocal acc, acc_tiles, acc_pairs
+                    ta_l, tb_l, sels, cols = [], [], [], []
+                    off = 0
+                    for (k, j0, gc, a, b, d) in acc:
+                        ta_l.append(np.full(gc, k, np.int32))
+                        tb_l.append(np.arange(j0, j0 + gc, dtype=np.int32))
+                        sels.append((((off + b // TB - j0) * TA
+                                      + (a - k * TA)) * TB
+                                     + b % TB).astype(np.int32))
+                        cols.append((a, b, d))
+                        off += gc
+                    acc, acc_tiles, acc_pairs = [], 0, 0
+                    return (np.concatenate(ta_l), np.concatenate(tb_l),
+                            np.concatenate(sels),
+                            PairBlock(
+                                s1=np.concatenate([c[0] for c in cols]),
+                                s2=np.concatenate([c[1] for c in cols]),
+                                dist=np.concatenate([c[2] for c in cols])),
+                            rem)
+
+                def add_group(k, a, b, d):
+                    """Split the group at GMAXT-tile partner windows
+                    (window-major: each tile computes once), then pack
+                    pieces into chunks. Every non-final piece spans
+                    exactly GMAXT tiles, fills its own chunk and is
+                    flushed immediately with rem = pieces of this group
+                    still to come; the final piece batches with following
+                    groups as usual (rem=0)."""
+                    nonlocal acc_tiles, acc_pairs
+                    j_end = max(k + 1, -(-int(b.max() + 1) // TB))
+                    pieces = []
+                    for c0 in range(k, j_end, GMAXT):
+                        c1 = min(c0 + GMAXT, j_end)
+                        m = (b >= c0 * TB) & (b < c1 * TB)
+                        if not m.any():
+                            continue
+                        pieces.append((k, c0, c1 - c0, a[m], b[m], d[m]))
+                    for pi, piece in enumerate(pieces):
+                        rem = len(pieces) - 1 - pi
+                        if acc and (acc_tiles + piece[2] > GMAXT
+                                    or acc_pairs + len(piece[3]) > CTARGET):
+                            yield flush()
+                        acc.append(piece)
+                        acc_tiles += piece[2]
+                        acc_pairs += len(piece[3])
+                        if rem:
+                            yield flush(rem)
+
+                for blk0 in iter_pair_blocks(pars, maf, pos_dist,
+                                             block_pairs=chunk):
+                    ks = blk0.s1 // TA
+                    edges = np.r_[0, np.flatnonzero(np.diff(ks)) + 1,
+                                  len(ks)]
+                    for e0, e1 in zip(edges[:-1], edges[1:]):
+                        k = int(ks[e0])
+                        part = (blk0.s1[e0:e1], blk0.s2[e0:e1],
+                                blk0.dist[e0:e1])
+                        if k != cur and pend:
+                            grp = [np.concatenate(x) for x in zip(*pend)]
+                            pend.clear()
+                            yield from add_group(cur, *grp)
+                        cur = k
+                        pend.append(part)
+                if pend:
+                    grp = [np.concatenate(x) for x in zip(*pend)]
+                    yield from add_group(cur, *grp)
+                if acc:
+                    yield flush()
+
+            bi = -1
+            skip_until = -1   # resumed split-group fast-forward
+            run_first = run_last = -1  # in-flight split-group span
+            try:
+                for item in _prefetch_blocks(strip_chunks(), depth=2):
+                    ta_slots, tb_slots, sel, blk, rem = item
+                    bi += 1
+                    n_blocks = bi + 1
+                    if gs.stopped or emit_err:
+                        interrupted = not emit_err
+                        break
+                    if bi <= skip_until:
+                        log.count("blocks_resumed")
+                        continue
+                    if ckpt is not None and bi > run_last:
+                        if rem and ckpt.done(bi + rem):
+                            # the whole split group was committed as one
+                            # merged shard at its final bi; the earlier
+                            # bis are empty placeholders: (re)commit any
+                            # the writer did not reach
+                            for j in range(bi, bi + rem):
+                                if not ckpt.done(j):
+                                    with ckpt.open_block(j):
+                                        pass
+                                    ckpt.commit_block(j)
+                            skip_until = bi + rem
+                            log.count("blocks_resumed")
+                            continue
+                        if not rem and ckpt.done(bi):
+                            log.count("blocks_resumed")
+                            continue
+                    if rem and bi > run_last:
+                        run_first, run_last = bi, bi + rem
+                    if run_last >= 0 and bi == run_last:
+                        meta = ("final", run_first)
+                        run_first = run_last = -1
+                    elif bi < run_last:
+                        meta = "cont"
+                    else:
+                        meta = None
+                    P = len(sel)
+                    gc = len(ta_slots)
+                    log.count("pairs_emitted", P)
+                    log.count("blocks_computed")
+                    if pars.verbose >= 3:
+                        log.log(3, f"> Strip chunk {bi}: {gc} tiles (anchor "
+                                   f"tiles {ta_slots[0]}..{ta_slots[-1]}), "
+                                   f"{P} pairs")
+                    # emission mode: flat cell-major for near-full chunks
+                    # (host-side sel, no device gather); compacted rows
+                    # otherwise
+                    use_flat = (strip_flat_fn is not None
+                                and P >= flat_util * gc * TA_TB)
+                    t0 = time.perf_counter()
+                    # exactly the chunk's tiles launch and, compacted,
+                    # exactly P rows come back (no padding to GMAXT tiles
+                    # or to a sel capacity)
+                    args = (s_ga, s_gb, s_ea, s_eb, s_maf, s_maf, s_lo, s_hi,
+                            s_ok, s_ok,
+                            torch.from_numpy(ta_slots).to(device),
+                            torch.from_numpy(tb_slots).to(device))
+                    if use_flat:
+                        dev_out = strip_flat_fn(*args)   # async
+                    else:
+                        dev_out = strip_fn(
+                            *args, torch.from_numpy(sel).to(device))
+                    log.count_time("sweep: dispatch",
+                                   time.perf_counter() - t0)
+                    emit_q.put((bi, blk, dev_out, meta,
+                                sel if use_flat else None))
+            finally:
+                emit_q.put(None)
+                for t in stages:
+                    t.join()
+            if emit_err:
+                raise emit_err[0]
+        else:
+            blocks_it = enumerate(_prefetch_blocks(
+                iter_pair_blocks(pars, maf, pos_dist, block_pairs=chunk)))
+            try:
+                while True:
+                    t_top = time.perf_counter()
+                    try:
+                        bi, blk = next(blocks_it)
+                    except StopIteration:
+                        break
+                    log.count_time("sweep: plan wait",
+                                   time.perf_counter() - t_top)
+                    n_blocks = bi + 1
+                    if gs.stopped or emit_err:
+                        interrupted = not emit_err
+                        break
+                    if ckpt is not None and ckpt.done(bi):
+                        log.count("blocks_resumed")
+                        continue
+                    P = len(blk.s1)
+                    log.count("pairs_emitted", P)
+                    log.count("blocks_computed")
+                    if pars.verbose >= 3:
+                        log.log(3, f"> Block {bi}: anchors "
+                                   f"{blk.s1[0]}..{blk.s1[-1]}, {P} pairs")
+                    t0 = time.perf_counter()
+                    # one fused (2, P) index upload per block; exactly P pairs
+                    # launch and P rows come back (no padding quantum)
+                    sidx = torch.from_numpy(
+                        np.stack([blk.s1, blk.s2]).astype(np.int32)).to(device)
+                    dev_out = compute.compute_block(
+                        gn_d, eg_d, maf_d, sidx, pars.ignore_miss_data)  # async
+                    log.count_time("sweep: dispatch", time.perf_counter() - t0)
+                    emit_q.put((bi, blk, dev_out))
+            finally:
+                # always shut the pipeline down, even when the loop raises:
+                # stages blocked on get() would otherwise pin device buffers
+                emit_q.put(None)
+                for t in stages:
+                    t.join()
+            if emit_err:
+                raise emit_err[0]
 
     if interrupted:
         hint = (f"resume with the same --checkpoint {ckpt.dir}"

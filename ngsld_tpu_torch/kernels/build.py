@@ -1,11 +1,12 @@
-"""Build the CUDA kernels of csrc/ into a shared library, at first use.
+"""Build the CUDA kernels of csrc/ into shared libraries, at first use.
 
-nvcc compiles the repository's .cu sources (and nothing else) into one
-shared library with a plain C interface, loaded with ctypes. The output
-goes to ngsld_tpu_torch/.build/, keyed by a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
-Without nvcc, or on a failed compile, build_library raises RuntimeError
-(carrying nvcc's stderr): there is no fallback.
+nvcc compiles each of the repository's .cu sources (and nothing else)
+into its own shared library with a plain C interface, loaded with ctypes.
+All missing libraries build at once, one nvcc process per source, started
+together. The outputs go to ngsld_tpu_torch/.build/, keyed by a hash of
+the source and the flags, so an edited source rebuilds and an unchanged
+one loads at once. Without nvcc, or on a failed compile, build_libraries
+raises RuntimeError (carrying nvcc's stderr): there is no fallback.
 """
 
 from __future__ import annotations
@@ -27,7 +28,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
-_LIB = None
+_LIBS: dict = {}
+
+_vp, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# source name -> {entry point: argtypes}; every entry point returns the
+# cudaError of its launch as an int
+ENTRY_POINTS = {
+    "pair_em": {
+        name: [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp]
+        for name in ("ngsld_pair_em_f32", "ngsld_pair_em_f64")},
+    "strip_em": {
+        "ngsld_strip_em": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 6
+        + [_vp] * 5},
+}
 
 
 def find_nvcc() -> str | None:
@@ -42,52 +55,61 @@ def find_nvcc() -> str | None:
     return None
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources() -> dict:
+    """{name: path} of every kernel source in csrc/."""
+    return {os.path.splitext(os.path.basename(p))[0]: p
+            for p in sorted(glob.glob(os.path.join(CSRC, "*.cu")))}
 
 
-def library_path() -> str:
-    """Where the library for the current sources and flags lives."""
+def library_path(name: str) -> str:
+    """Where the library for the source's current text and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(os.path.basename(src).encode())
-        with open(src, "rb") as fh:
-            h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"ngsld_kernels_{h.hexdigest()[:16]}.so")
+    with open(sources()[name], "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"ngsld_{name}_{h.hexdigest()[:16]}.so")
 
 
-def build_library() -> str:
-    """Compile (if needed) and return the library path."""
-    so = library_path()
-    if os.path.exists(so):
-        return so
+def build_libraries() -> dict:
+    """Compile every library that is missing, all at once, and return
+    {name: library path}."""
+    paths = {name: library_path(name) for name in sources()}
+    missing = [n for n, so in paths.items() if not os.path.exists(so)]
+    if not missing:
+        return paths
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "ngsld_tpu_torch: nvcc not found (set CUDA_HOME or put nvcc on "
             "PATH); the CUDA kernels cannot be built")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"ngsld_tpu_torch: nvcc failed ({res.returncode}): "
-            f"{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, so)
-    return so
+    procs = []
+    for name in missing:
+        tmp = f"{paths[name]}.tmp.{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, sources()[name]]
+        procs.append((name, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for name, tmp, cmd, proc in procs:
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{stderr}")
+        else:
+            os.replace(tmp, paths[name])
+    if errors:
+        raise RuntimeError("ngsld_tpu_torch: " + "\n".join(errors))
+    return paths
 
 
-def get_library() -> ctypes.CDLL:
-    """Build if needed, load once, declare the entry points."""
-    global _LIB
+def get_library(name: str) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu: build if needed, load once, declare
+    its entry points."""
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build_library())
-            vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            for name in ("ngsld_pair_em_f32", "ngsld_pair_em_f64"):
-                fn = getattr(lib, name)
-                fn.restype = i32
-                fn.argtypes = [vp, vp, vp, i64, i32, i32, vp, vp, vp, vp]
-            _LIB = lib
-        return _LIB
+        if name not in _LIBS:
+            lib = ctypes.CDLL(build_libraries()[name])
+            for fn_name, argtypes in ENTRY_POINTS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype = _i32
+                fn.argtypes = argtypes
+            _LIBS[name] = lib
+        return _LIBS[name]

@@ -57,7 +57,7 @@ def pair_em_gather(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
     if gn.device.type != "cuda":
         raise ValueError(f"no pair-EM kernel for device {gn.device}")
     from .build import get_library
-    lib = get_library()
+    lib = get_library("pair_em")
     gn, sidx, maf = gn.contiguous(), sidx.contiguous(), maf.contiguous()
     P, I = sidx.shape[1], gn.shape[1]
     f = torch.empty((P, 4), dtype=gn.dtype, device=gn.device)

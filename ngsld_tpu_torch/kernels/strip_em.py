@@ -1,0 +1,289 @@
+"""Strip-tile EM: tables, the CUDA kernel's wrapper, its plain version and
+the two emission epilogues (ngsld_tpu/kernels/pallas_strip.py).
+
+A tile is a rectangle of pairs, anchors [ta*TA, (ta+1)*TA) x partners
+[tb*TB, (tb+1)*TB), computed from contiguous slices of the strip tables
+(no gathers). strip_em runs a list of tiles: on CUDA tensors it launches
+csrc/strip_em.cu (the port of pallas_strip._strip_kernel) or raises; on
+CPU tensors it runs strip_em_ref, the plain PyTorch version. LAUNCHES
+counts kernel launches, nothing else.
+
+Per cell (a, b): live iff lo[a] <= b < hi[a] and both sites ok. Live
+cells run the two-locus EM of ops/em.py to their own convergence; dead
+cells keep the f0 init and n_iter == iter_cap. Every cell gets r2p, the
+squared dot of the standardized E[G] rows, and n_used. As in
+kernels/pair_em.py the tables and outputs are f32 while the EM arithmetic
+(and the r2p dot) runs in f64: an f32 EM stops one iteration away from the
+f64 reference wherever eps lands within f32 rounding of EPSILON.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import EPSILON, ITER_MAX
+from ..plan.strips import TA, TB
+
+LAUNCHES = 0
+
+# plain version: tiles per batch are bounded so that one f64
+# (tiles, TA, I, TB) plane stays under this many bytes
+_REF_PLANE_BYTES = 1 << 27
+
+
+def strip_tables(gn: torch.Tensor, eg: torch.Tensor, n_ind: int,
+                 i_align: int = 8):
+    """Build the strip tables from the engine's site-major arrays
+    (pallas_strip.strip_tables).
+
+    gn (S, I, 3) normal-space GLs -> ga (3, S, Ip) + gb (3, Ip, S); padded
+    individuals hold the uniform 1/3 record (never counted: the EM and
+    n_used stop at n_ind). eg (S, I) expected genotypes -> standardized
+    tables ea (S, Ip), eb (Ip, S) carrying (e - mean)/(sqrt(n)*sd), so a
+    pair's Pearson r2 is the squared dot product; zero-variance sites
+    produce inf/NaN exactly like the two-pass formula's 0-division."""
+    S, I, _ = gn.shape
+    assert I == n_ind, (I, n_ind)   # cross-check the caller's cohort size
+    Ip = -(-I // i_align) * i_align
+    g = torch.nn.functional.pad(gn.to(torch.float32), (0, 0, 0, Ip - I),
+                                value=1.0 / 3.0)
+    ga = g.permute(2, 0, 1).contiguous()
+    gb = g.permute(2, 1, 0).contiguous()
+    e = eg.to(torch.float32)
+    c = e - e.mean(dim=1, keepdim=True)
+    ss = (c * c).sum(dim=1, keepdim=True)
+    et = torch.nn.functional.pad(c / torch.sqrt(ss), (0, Ip - I))
+    return ga, gb, et, et.t().contiguous()
+
+
+def _is_miss(g0, g1, g2):
+    return ((g0 - g1).abs() < EPSILON) & ((g1 - g2).abs() < EPSILON)
+
+
+def _ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
+               I, iter_cap, ignore_miss, ta_sz, tb_sz):
+    """Plain EM for one batch of tiles, on (n, TA, I, TB) broadcasts."""
+    dev = ga.device
+    f64 = torch.float64
+    n = ta.shape[0]
+    ar = (ta.long() * ta_sz)[:, None] + torch.arange(ta_sz, device=dev)
+    bc = (tb.long() * tb_sz)[:, None] + torch.arange(tb_sz, device=dev)
+    # anchors (n, TA, I, 1), partners (n, 1, I, TB), real individuals only
+    x = [ga[c][ar][:, :, :I, None].to(f64) for c in range(3)]
+    y = [gb[c][:I][:, bc].permute(1, 0, 2)[:, None].to(f64)
+         for c in range(3)]
+    corr = torch.matmul(ea[ar].to(f64), eb[:, bc].permute(1, 0, 2).to(f64))
+    r2p = (corr * corr).to(torch.float32)
+
+    if ignore_miss:
+        inc = ~(_is_miss(*x) | _is_miss(*y))                 # (n,TA,I,TB)
+        n_used = inc.sum(dim=2).to(torch.int32)
+        incf = inc.to(f64)
+    else:
+        n_used = torch.full((n, ta_sz, tb_sz), I, dtype=torch.int32,
+                            device=dev)
+        incf = torch.ones((), dtype=f64, device=dev)
+    inv_x = (1.0 / n_used.to(f64))[:, :, None, :]            # (n,TA,1,TB)
+
+    ma = maf_a[ar].to(f64)[:, :, None, None]
+    mb = maf_b[bc].to(f64)[:, None, None, :]
+    f = [(1 - ma) * (1 - mb), (1 - ma) * mb, ma * (1 - mb), ma * mb]
+    bg = bc[:, None, :]
+    active = ((bg >= lo[ar].long()[:, :, None])
+              & (bg < hi[ar].long()[:, :, None])
+              & (ok_a[ar] > 0)[:, :, None]
+              & (ok_b[bc] > 0)[:, None, :])[:, :, None, :]   # (n,TA,1,TB)
+    n_iter = torch.full((n, ta_sz, 1, tb_sz), iter_cap, dtype=torch.int32,
+                        device=dev)
+    it = 0
+    while it < iter_cap and bool(active.any()):
+        # D_k = sum_{a,b} f[2a+b] x[a1k+a] y[a2k+b], through
+        # Q[a][c] = f[2a] y[c] + f[2a+1] y[c+1]
+        q00, q01 = f[0] * y[0] + f[1] * y[1], f[0] * y[1] + f[1] * y[2]
+        q10, q11 = f[2] * y[0] + f[3] * y[1], f[2] * y[1] + f[3] * y[2]
+        D = [x[0] * q00 + x[1] * q10, x[0] * q01 + x[1] * q11,
+             x[1] * q00 + x[2] * q10, x[1] * q01 + x[2] * q11]
+        s = ((f[0] * D[0] + f[1] * D[1]) + f[2] * D[2]) + f[3] * D[3]
+        r = incf / s    # masked reciprocal; excluded individuals add 0
+        f_new = [f[k] * (D[k] * r).sum(dim=2, keepdim=True) * inv_x
+                 for k in range(4)]
+        norm = ((f_new[0] + f_new[1]) + f_new[2]) + f_new[3]
+        f_next = [torch.where(active, f_new[k] / norm, f[k])
+                  for k in range(4)]
+        # NaN-ignoring max fold (`if (x > eps) eps = x`); torch.maximum
+        # would propagate NaN instead
+        eps = torch.zeros_like(f[0])
+        for k in range(4):
+            d = (f_next[k] - f[k]).abs()
+            eps = torch.where(d > eps, d, eps)
+        newly = active & (eps < EPSILON)
+        n_iter = torch.where(newly, torch.full_like(n_iter, it), n_iter)
+        active = active & ~newly
+        f = f_next
+        it += 1
+    f_out = torch.stack([fk[:, :, 0, :] for fk in f], dim=1)
+    return (f_out.to(torch.float32), r2p, n_iter[:, :, 0, :], n_used)
+
+
+def strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
+                 *, n_ind: int, iter_cap: int = ITER_MAX,
+                 ignore_miss: bool = False, ta_sz: int = TA,
+                 tb_sz: int = TB):
+    """Plain PyTorch version of strip_em: same arguments, same outputs.
+    Tiles go through in bounded batches so a chunk of hundreds of tiles
+    fits in memory."""
+    n = ta.shape[0]
+    per_tile = 8 * ta_sz * max(n_ind, 1) * tb_sz
+    nb = max(1, _REF_PLANE_BYTES // per_tile)
+    outs = [_ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b,
+                       ta[i:i + nb], tb[i:i + nb], n_ind, iter_cap,
+                       ignore_miss, ta_sz, tb_sz)
+            for i in range(0, n, nb)]
+    if not outs:
+        dev = ga.device
+        return (torch.empty((0, 4, ta_sz, tb_sz), device=dev),
+                torch.empty((0, ta_sz, tb_sz), device=dev),
+                torch.empty((0, ta_sz, tb_sz), dtype=torch.int32, device=dev),
+                torch.empty((0, ta_sz, tb_sz), dtype=torch.int32, device=dev))
+    return tuple(torch.cat([o[k] for o in outs]) for k in range(4))
+
+
+def _check(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
+           n_ind, ta_sz, tb_sz):
+    if ga.dim() != 3 or ga.shape[0] != 3:
+        raise ValueError(f"ga must be (3, Sa, Ip), got {tuple(ga.shape)}")
+    _, Sa, Ip = ga.shape
+    if gb.dim() != 3 or gb.shape[0] != 3 or gb.shape[1] != Ip:
+        raise ValueError(f"gb must be (3, Ip, Sb), got {tuple(gb.shape)}")
+    Sb = gb.shape[2]
+    if ea.shape != (Sa, Ip) or eb.shape != (Ip, Sb):
+        raise ValueError("ea must be (Sa, Ip) and eb (Ip, Sb), got "
+                         f"{tuple(ea.shape)} and {tuple(eb.shape)}")
+    if not 0 < n_ind <= Ip:
+        raise ValueError(f"n_ind {n_ind} outside (0, Ip = {Ip}]")
+    if ta_sz % 8 or tb_sz % 32:
+        raise ValueError("tile shape must be a multiple of (8, 32), got "
+                         f"({ta_sz}, {tb_sz})")
+    for name, t, shape, dt in (
+            ("ga", ga, None, torch.float32), ("gb", gb, None, torch.float32),
+            ("ea", ea, None, torch.float32), ("eb", eb, None, torch.float32),
+            ("maf_a", maf_a, (Sa,), torch.float32),
+            ("maf_b", maf_b, (Sb,), torch.float32),
+            ("lo", lo, (Sa,), torch.int32), ("hi", hi, (Sa,), torch.int32),
+            ("ok_a", ok_a, (Sa,), torch.float32),
+            ("ok_b", ok_b, (Sb,), torch.float32),
+            ("ta", ta, (ta.shape[0],), torch.int32),
+            ("tb", tb, (ta.shape[0],), torch.int32)):
+        if t.dtype != dt or (shape is not None and tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be {dt} of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != ga.device:
+            raise ValueError(f"{name} is on {t.device}, ga on {ga.device}")
+
+
+def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
+             n_ind: int, iter_cap: int = ITER_MAX, ignore_miss: bool = False,
+             ta_sz: int = TA, tb_sz: int = TB):
+    """Run one batch of tiles.
+
+    ga (3, Sa, Ip), gb (3, Ip, Sb), ea (Sa, Ip), eb (Ip, Sb): f32 strip
+    tables (strip_tables); the anchor (Sa) and partner (Sb) axes may be
+    different site ranges. maf_a/ok_a (Sa,) and maf_b/ok_b (Sb,) f32;
+    lo/hi (Sa,) int32 live-partner bounds [lo, hi) in partner-axis
+    coordinates; ta/tb (n,) int32 tile coordinates in ta_sz/tb_sz units.
+    The caller guarantees every tile lies inside the tables
+    ((ta+1)*ta_sz <= Sa, (tb+1)*tb_sz <= Sb). Returns f (n, 4, TA, TB)
+    f32, r2p (n, TA, TB) f32, n_iter and n_used (n, TA, TB) int32."""
+    global LAUNCHES
+    _check(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, n_ind,
+           ta_sz, tb_sz)
+    kw = dict(n_ind=n_ind, iter_cap=iter_cap, ignore_miss=ignore_miss,
+              ta_sz=ta_sz, tb_sz=tb_sz)
+    if ga.device.type == "cpu":
+        return strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a,
+                            ok_b, ta, tb, **kw)
+    if ga.device.type != "cuda":
+        raise ValueError(f"no strip-EM kernel for device {ga.device}")
+    from .build import get_library
+    lib = get_library("strip_em")
+    tens = [t.contiguous() for t in (ga, gb, ea, eb, maf_a, maf_b, lo, hi,
+                                     ok_a, ok_b, ta, tb)]
+    n, dev = ta.shape[0], ga.device
+    f = torch.empty((n, 4, ta_sz, tb_sz), dtype=torch.float32, device=dev)
+    r2p = torch.empty((n, ta_sz, tb_sz), dtype=torch.float32, device=dev)
+    n_iter = torch.empty((n, ta_sz, tb_sz), dtype=torch.int32, device=dev)
+    n_used = torch.empty((n, ta_sz, tb_sz), dtype=torch.int32, device=dev)
+    if n == 0:
+        return f, r2p, n_iter, n_used
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ngsld_strip_em(
+            *[t.data_ptr() for t in tens], n, ga.shape[1], gb.shape[2],
+            ga.shape[2], n_ind, ta_sz, tb_sz, iter_cap,
+            int(bool(ignore_miss)), f.data_ptr(), r2p.data_ptr(),
+            n_iter.data_ptr(), n_used.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"strip_em CUDA kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return f, r2p, n_iter, n_used
+
+
+def _imat(nit, nu, slim_im: bool, use_i16: bool, ignore_miss: bool):
+    """Per-row int metadata: (C, 1) i8 n_iter when slim (n_used is then the
+    constant n_ind the host synthesizes; n_iter <= ITER_MAX fits i8), else
+    (C, 2) i16|i32 [n_iter, n_used]."""
+    if slim_im:
+        assert not ignore_miss, "slim_im requires the constant-n_used mode"
+        return nit.to(torch.int8)[:, None]
+    idt = torch.int16 if use_i16 else torch.int32
+    return torch.stack([nit.to(idt), nu.to(idt)], dim=1)
+
+
+def strip_em_compact(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta,
+                     tb, sel, *, n_ind: int, iter_cap: int = ITER_MAX,
+                     ignore_miss: bool = False, use_i16: bool = True,
+                     slim_im: bool = False, ta_sz: int = TA,
+                     tb_sz: int = TB):
+    """strip_em + on-device row compaction (pallas_strip.strip_em_compact).
+
+    sel (C,) int32 holds flat indices into the (n_tiles, TA, TB) cell
+    space, in the caller's emission order. Only the selected rows leave
+    the device: fm (C, 5) f32 = [r2p, f00, f01, f10, f11] and im (see
+    _imat), so host-link bytes scale with live pairs, not tile area."""
+    f, r2p, nit, nu = strip_em(
+        ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
+        n_ind=n_ind, iter_cap=iter_cap, ignore_miss=ignore_miss,
+        ta_sz=ta_sz, tb_sz=tb_sz)
+    n, cells = ta.shape[0], ta_sz * tb_sz
+    sel = sel.long()
+    # f is (n, 4, TA*TB): pick (tile, :, cell) without a full relayout
+    ff = f.view(n, 4, cells)[sel // cells, :, sel % cells]
+    fm = torch.cat([r2p.reshape(-1).index_select(0, sel)[:, None], ff],
+                   dim=1)
+    im = _imat(nit.reshape(-1).index_select(0, sel),
+               nu.reshape(-1).index_select(0, sel), slim_im, use_i16,
+               ignore_miss)
+    return fm, im
+
+
+def strip_em_flat(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
+                  *, n_ind: int, iter_cap: int = ITER_MAX,
+                  ignore_miss: bool = False, use_i16: bool = True,
+                  slim_im: bool = False, ta_sz: int = TA, tb_sz: int = TB):
+    """strip_em + flat cell-major emission (pallas_strip.strip_em_flat):
+    every cell of the chunk's tiles as dense rows in (tile, a, b) order,
+    fm (n*TA*TB, 5) f32 and im (see _imat): the same flat index space
+    strip_em_compact's sel addresses, so the host applies sel as a numpy
+    take. All cells cross the link, so the engine picks this form only for
+    chunks whose live-cell fraction is near 1."""
+    f, r2p, nit, nu = strip_em(
+        ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
+        n_ind=n_ind, iter_cap=iter_cap, ignore_miss=ignore_miss,
+        ta_sz=ta_sz, tb_sz=tb_sz)
+    n_cells = ta.shape[0] * ta_sz * tb_sz
+    ff = f.permute(0, 2, 3, 1).reshape(n_cells, 4)
+    fm = torch.cat([r2p.reshape(n_cells, 1), ff], dim=1)
+    im = _imat(nit.reshape(-1), nu.reshape(-1), slim_im, use_i16,
+               ignore_miss)
+    return fm, im

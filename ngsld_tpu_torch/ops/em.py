@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ngsld_tpu.constants import EPSILON, ITER_MAX
+from ..constants import EPSILON, ITER_MAX
 
 from .preprocess import miss_mask
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ngsld_tpu.constants import EPSILON, INF, N_GENO
+from ..constants import EPSILON, INF, N_GENO
 
 
 def normalize_gl(gl_log: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,14 @@
-"""The port's CLI end to end on the CPU (f64, the kernels' plain twins):
-against --engine strict under the f64 column contract on the matrix of
-tests/test_engine.py:77-101, against the JAX engine (run_jax, CPU f64),
-through a checkpoint kill-and-resume, with JAX blocked from import, and
-refusing the options this slice does not implement."""
+"""The port's CLI end to end on the CPU (asked for with NGSLD_PLATFORM=cpu;
+f64, the kernels' plain versions): against --engine strict under the f64
+column contract on the matrix of tests/test_engine.py:77-101, against the
+JAX engine (run_jax, CPU f64), through a checkpoint kill-and-resume, with
+JAX and the JAX package blocked from import, refusing the options the
+port does not implement yet, and refusing to run on the CPU unasked."""
 
+import glob
 import io
 import os
+import re
 import subprocess
 import sys
 
@@ -21,6 +24,12 @@ from ngsld_tpu_torch.engine import run_torch
 from ngsld_tpu_torch.utils.conformance import cmp_vs_strict, compare
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def ask_for_the_cpu(monkeypatch):
+    # the engine runs on the card unless the caller asks for the CPU
+    monkeypatch.setenv("NGSLD_PLATFORM", "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +134,7 @@ def test_checkpoint_kill_and_resume(fixdir, tmp_path, monkeypatch):
 
     monkeypatch.setattr(engine_block.compute, "compute_block", real)
     resumed = io.BytesIO()
-    from ngsld_tpu.utils.logging import RunLog
+    from ngsld_tpu_torch.utils.logging import RunLog
     counts = {}
     orig_summary = RunLog.summary
 
@@ -140,22 +149,66 @@ def test_checkpoint_kill_and_resume(fixdir, tmp_path, monkeypatch):
     assert resumed.getvalue() == plain.getvalue()
 
 
-def test_cli_runs_with_jax_blocked(fixdir, tmp_path):
-    argv = _argv(fixdir, ["--max_kb_dist", "10", "--min_maf", "0.05"])
+@pytest.mark.parametrize("strip", ["0", "1"], ids=["gather", "strip"])
+def test_cli_runs_with_jax_blocked(fixdir, tmp_path, monkeypatch, strip):
+    """The port's CLI in a process where neither jax nor the JAX package
+    can be imported, through the gather sweep and through the strip sweep."""
+    monkeypatch.setenv("NGSLD_BLOCK_STRIP", strip)
+    argv = _argv(fixdir, ["--max_kb_dist", "10", "--min_maf", "0.05",
+                          "--precision", "f32"])
     in_proc = _run_cli(argv, tmp_path / "a.ld")
     out = tmp_path / "b.ld"
-    code = ("import sys; sys.modules['jax'] = None\n"
+    code = ("import sys\n"
+            "sys.modules['jax'] = None; sys.modules['ngsld_tpu'] = None\n"
             "from ngsld_tpu_torch.cli import main\n"
             f"rc = main({argv + ['--out', str(out)]!r})\n"
-            "assert sys.modules['jax'] is None and not [m for m in "
-            "sys.modules if m.startswith('jax.')], 'jax imported'\n"
+            "for name in ('jax', 'ngsld_tpu'):\n"
+            "    assert sys.modules[name] is None and not [m for m in "
+            "sys.modules if m.startswith(name + '.')], name + ' imported'\n"
             "sys.exit(rc)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, cwd=REPO, env=env)
     assert r.returncode == 0, r.stderr
     with open(out) as fh:
-        assert fh.read().splitlines() == in_proc
+        rows = fh.read().splitlines()
+    assert rows == in_proc and len(rows) > 100
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    files = glob.glob(os.path.join(REPO, "ngsld_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 25
+    pat = re.compile(r"^\s*(import|from)\s+(jax|ngsld_tpu)(\.|\s|$)", re.M)
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            bad += [(os.path.relpath(path, REPO), m.group(0).strip())
+                    for m in pat.finditer(fh.read())]
+    assert bad == []
+    # the pattern does find such imports where they exist
+    assert pat.search("    from ngsld_tpu.strict import StrictError\n")
+    assert pat.search("import jax\n") and pat.search("import jax.numpy\n")
+    assert not pat.search("from ngsld_tpu_torch.cli import main\n")
+
+
+def test_cli_refuses_the_cpu_unless_asked(fixdir, tmp_path, monkeypatch,
+                                          capsys):
+    """Without NGSLD_PLATFORM=cpu and without a CUDA device the engine
+    refuses to run and prints no rows."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the engine would run on it")
+    monkeypatch.delenv("NGSLD_PLATFORM")
+    out = tmp_path / "x.ld"
+    argv = _argv(fixdir, ["--max_kb_dist", "10"])
+    assert main(argv + ["--out", str(out)]) == 1
+    cap = capsys.readouterr()
+    assert "no CUDA device" in cap.err and "NGSLD_PLATFORM=cpu" in cap.err
+    assert cap.out == "" and not os.path.exists(out)
+    # rows to stdout: still none
+    assert main(argv) == 1
+    assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("extra,env,flag", [
@@ -163,7 +216,6 @@ def test_cli_runs_with_jax_blocked(fixdir, tmp_path):
     (["--shard_ind", "2"], {}, "shard"),
     (["--ring"], {}, "ring"),
     (["--profile", "trace_dir"], {}, "profile"),
-    ([], {"NGSLD_BLOCK_STRIP": "1"}, "NGSLD_BLOCK_STRIP"),
 ])
 def test_unported_options_are_refused(fixdir, tmp_path, monkeypatch, capsys,
                                       extra, env, flag):

@@ -1,5 +1,5 @@
-"""The gather pair-EM kernel's wrapper, build helper and chip smoke
-script, as far as a machine without CUDA can check them: CPU tensors take
+"""The gather pair-EM kernel's wrapper, the kernels' build helper and the
+chip smoke script, as far as a machine without CUDA can check them: CPU tensors take
 the plain twin (no launch counted), a missing or failing nvcc raises,
 other devices raise, and chip_smoke.py refuses to run. The kernel itself
 is compared with its twin in the `gpu`-marked test and by chip_smoke.py
@@ -65,9 +65,11 @@ def test_wrapper_rejects_bad_inputs():
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "find_nvcc", lambda: None)
     monkeypatch.setattr(build, "library_path",
-                        lambda: str(tmp_path / "missing.so"))
+                        lambda name: str(tmp_path / f"missing_{name}.so"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.build_library()
+        build.build_libraries()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.get_library("strip_em")
 
 
 def test_failed_compile_raises_with_nvcc_stderr(monkeypatch, tmp_path):
@@ -77,19 +79,24 @@ def test_failed_compile_raises_with_nvcc_stderr(monkeypatch, tmp_path):
     fake.chmod(0o755)
     monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
     monkeypatch.setattr(build, "library_path",
-                        lambda: str(tmp_path / "out" / "k.so"))
+                        lambda name: str(tmp_path / "out" / f"{name}.so"))
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
-    with pytest.raises(RuntimeError, match="error: boom"):
-        build.build_library()
-    assert not os.path.exists(tmp_path / "out" / "k.so")
+    with pytest.raises(RuntimeError, match="error: boom") as ei:
+        build.build_libraries()
+    # one nvcc per source, and every failure is reported
+    assert "pair_em.cu" in str(ei.value) and "strip_em.cu" in str(ei.value)
+    assert os.listdir(tmp_path / "out") == []
 
 
 def test_library_path_keys_on_sources_and_flags(monkeypatch):
-    a = build.library_path()
+    a = build.library_path("pair_em")
     assert os.path.dirname(a) == build.BUILD_DIR
+    assert build.library_path("strip_em") != a
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
-    assert build.library_path() != a
-    assert all(s.endswith(".cu") for s in build._sources())
+    assert build.library_path("pair_em") != a
+    assert sorted(build.sources()) == sorted(build.ENTRY_POINTS) \
+        == ["pair_em", "strip_em"]
+    assert all(s.endswith(".cu") for s in build.sources().values())
     assert "--use_fast_math" not in build.NVCC_FLAGS
 
 
