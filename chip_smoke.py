@@ -6,7 +6,7 @@
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, whether the native host library loaded
-  2. build: the CUDA kernels from csrc/, one nvcc per source, timed
+  2. build: the five CUDA kernels from csrc/, one nvcc per source, timed
   3. kernel vs plain on the card, each kernel against its plain PyTorch
      version: pair_em_gather at the gather path's 524,288-pair block x 100
      individuals (f32 and f64, --ignore_miss_data off and on, x = 0 pairs
@@ -16,10 +16,22 @@ Phases, each printing its result and seconds on its own line:
      --ignore_miss_data off and on) and 16 tiles at I = 37 and I = 1,200;
      f to f's rounding, nIter and n_used exact; kernel and plain times,
      and each kernel's bound on this card
+  3b. the large-cohort kernels against their plain versions: pair_em_rows,
+     pair_em_ichunk and the streamed strip_em at I = 37 and 1,200 (chunks
+     with a partial last one, dead cells, x = 0 pairs, --ignore_miss_data
+     off and on), then at the large-cohort cells, a 512-individual
+     simulated panel tiled to the cohort size: pair_em_rows at 2,048 pairs
+     x 4,000, pair_em_ichunk at 2,048 pairs x 20,000, the streamed strip_em
+     on the 36 all-pairs tiles of 1,024 sites x 20,000 (against the plain
+     version on 2 tiles there and on all 36 tiles at I = 1,200, and bit
+     for bit against the resident kernel on all 36). Beside each new
+     kernel's time, the older kernel's time at the same cell
   4. the slice vs the strict oracle: the port's CLI on the card against
      --engine strict, 24 x 2,000 fixture, four flag variants, each
-     through the gather sweep and through the strip sweep; plus a 12 x 384
-     all-pairs fixture with flat and compact strip emission, byte-equal
+     through the gather sweep and through the strip sweep; the gz-text
+     run through the streamed text loader byte-equal to the run through
+     strict.read_geno; plus a 12 x 384 all-pairs fixture with flat and
+     compact strip emission, byte-equal
   5. real size: 25,000 sites x 100 individuals, --max_kb_dist 100
      --extend_out, through the port's CLI; the auto rule must take the
      strip sweep: row count against the host plan, strip launches against
@@ -27,6 +39,13 @@ Phases, each printing its result and seconds on its own line:
      split and pairs/s. Then the same fixture cut to 10,000 sites through
      the gather sweep (launches against the block count, sample against
      strict) and through the strip sweep, the two outputs held together
+  5b. the large cohort through the CLI: a binary GL file (doubles,
+     --log_scale) of 2,048 sites x 20,000 individuals, through the
+     streamed loader; once dense (--max_snp_dist 128: the strip sweep with
+     the streamed kernel) and once sampled (--rnd_sample 0.1: the gather
+     sweep on the ichunk rung), then 2,048 x 4,000 sampled (the rows
+     rung); each run's kernel shown by its launch count, a row sample
+     against strict recomputes, the stage split with the upload's share
   6. device idle share: the phase 5 strip run under torch.profiler; busy
      time is the union of the trace's device intervals
 
@@ -57,14 +76,18 @@ MAIN_P, MAIN_I = 524_288, 100     # the default --chunk_pairs block, I = 100
 STRIP_S, STRIP_TILES = 4_096, 256  # the strip chunk: 256 tiles of 128 x 128
 REAL_S, REAL_I = 25_000, 100     # README's 25k row: ~4.5M pairs at kb100
 GATHER_S = 10_000                # the same fixture cut, for the gather path
+PANEL_I = 512                    # simulated panel, tiled to a large cohort
+BIG_I, ROWS_I, BIG_P = 20_000, 4_000, 2_048   # the large-cohort gather cells
+BIG_STRIP_S = 1_024              # streamed strip cell: 36 all-pairs tiles
+BIG_S = 2_048                    # large-cohort CLI runs: sites
 ENGINE_TAG = "(torch, cuda"        # the engine's device in its config echo
 F32_TOL, F64_TOL = 1e-6, 1e-12   # kernel vs plain: f's output rounding
 R2P_TOL = 2e-5                   # strip kernel's in-kernel Pearson r2
 # H100 SXM peaks for the bounds: device memory 3.35 TB/s; double precision
 # outside the tensor cores 34 TFLOP/s (NVIDIA's H100 data sheet)
 PEAK_BYTES_S, PEAK_F64_FLOPS = 3.35e12, 34e12
-# flops of one (pair, individual, iteration) of the EM as both kernels
-# write it: Q 12, D 12, s 7, the division 1, the four sums 8
+# flops of one (pair, individual, iteration) of the EM as every kernel
+# writes it: Q 12, D 12, s 7, the division 1, the four products and sums 8
 FLOPS_PER_EVAL = 40
 
 
@@ -124,7 +147,8 @@ def phase_build():
         get_library(name)
     print(f"built {sorted(os.path.relpath(p) for p in paths.values())} in "
           f"{time.perf_counter() - t0:.3f} s")
-    if sorted(paths) != ["pair_em", "strip_em"]:
+    if sorted(paths) != ["pair_em", "pair_em_ichunk", "pair_em_rows",
+                         "strip_em", "strip_em_stream"]:
         raise AssertionError(f"unexpected kernel sources: {sorted(paths)}")
 
 
@@ -187,11 +211,12 @@ def _check(kern, plain, tol, label):
     return err, int(x0.sum())
 
 
-def _time(fn, reps=3):
+def _time(fn, reps=3, warm=True):
     """Best of `reps` after a warm-up: CUDA events around the call, then a
-    pulled scalar that depends on the outputs (proves the work ran)."""
+    pulled scalar that depends on the outputs (proves the work ran).
+    warm=False: no warm-up call (the plain versions, which take seconds)."""
     import torch
-    out = fn()
+    out = fn() if warm else None
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(reps):
@@ -203,7 +228,7 @@ def _time(fn, reps=3):
         chk = res[0].nan_to_num().sum() + res[1].sum()
         float(chk.item())
         best = min(best, e0.elapsed_time(e1))
-    return best, out
+    return best, (out if warm else res)
 
 
 def _needed_evals(n_iter, n_ind, cap=100):
@@ -220,7 +245,7 @@ def _bound(n_bytes, flops):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def _strip_case(n_ind, n_sites, n_tiles, seed, device):
+def _strip_case(n_ind, n_sites, n_tiles, seed, device, i_align=8):
     """strip_em's arguments for the first n_tiles all-pairs tiles of a
     simulated table (2% all-missing sites), built as the engine builds
     them: padded to whole tiles, pad sites not ok."""
@@ -228,6 +253,16 @@ def _strip_case(n_ind, n_sites, n_tiles, seed, device):
     from ngsld_tpu_torch.kernels.strip_em import strip_tables
     from ngsld_tpu_torch.plan.strips import TA, strip_plan
     gl, eg, maf = _sim_tables(n_ind, n_sites, seed)
+    return _strip_args(gl, eg, maf, n_tiles, device, i_align)
+
+
+def _strip_args(gl, eg, maf, n_tiles, device, i_align=8):
+    """strip_em's arguments, the live mask and the dead cells' f0 for the
+    first n_tiles all-pairs tiles of the tables gl (S, I, 3), eg, maf."""
+    import torch
+    from ngsld_tpu_torch.kernels.strip_em import strip_tables
+    from ngsld_tpu_torch.plan.strips import TA, strip_plan
+    n_sites, n_ind = gl.shape[:2]
     S, Sp = n_sites, -(-n_sites // TA) * TA
     hi = np.zeros(Sp, np.int64)
     hi[:S] = S
@@ -242,7 +277,8 @@ def _strip_case(n_ind, n_sites, n_tiles, seed, device):
                                  constant_values=1.0 / 3.0)).to(device)
     egd = torch.from_numpy(np.pad(eg.astype(f32),
                                   ((0, Sp - S), (0, 0)))).to(device)
-    tabs = strip_tables(gn, egd, n_ind)
+    tabs = strip_tables(gn, egd, n_ind, i_align=i_align)
+    del gn, egd
     m = torch.from_numpy(np.pad(maf.astype(f32), (0, Sp - S),
                                 constant_values=0.5)).to(device)
     lo = torch.arange(1, Sp + 1, dtype=torch.int32, device=device)
@@ -326,7 +362,7 @@ def phase_kernel(card):
             if not ign:
                 ms_k, kern = _time(lambda: pair_em_gather(gn, sidx, maf, ign))
                 ms_p, plain = _time(
-                    lambda: pair_em_gather_ref(gn, sidx, maf, ign))
+                    lambda: pair_em_gather_ref(gn, sidx, maf, ign), 1, False)
             else:
                 kern = pair_em_gather(gn, sidx, maf, ign)
                 plain = pair_em_gather_ref(gn, sidx, maf, ign)
@@ -369,7 +405,7 @@ def phase_kernel(card):
         kw = dict(n_ind=MAIN_I, ignore_miss=ign)
         if not ign:
             ms_k, kern = _time(lambda: strip_em(*args, **kw))
-            ms_p, plain = _time(lambda: strip_em_ref(*args, **kw))
+            ms_p, plain = _time(lambda: strip_em_ref(*args, **kw), 1, False)
         else:
             kern, plain = strip_em(*args, **kw), strip_em_ref(*args, **kw)
         err = _check_strip(kern, plain, live, f0_dead, label)
@@ -405,10 +441,231 @@ def phase_kernel(card):
         args, live, f0_dead = _strip_case(n_ind, 2_048, 16, n_ind, dev)
         for ign in (False, True):
             kw = dict(n_ind=n_ind, ignore_miss=ign)
-            _check_strip(strip_em(*args, **kw), strip_em_ref(*args, **kw),
+            # the resident kernel, also past the size at which strip_em
+            # would pick the streamed one
+            with _resident_strip_forced():
+                kern = strip_em(*args, **kw)
+            _check_strip(kern, strip_em_ref(*args, **kw),
                          live, f0_dead, f"strip_em tiles=16 I={n_ind} "
                          f"ignore_miss={ign}")
         del args
+    torch.cuda.synchronize()
+    return report
+
+
+# --------------------------------------------------------------- phase 3b
+
+def _tiled_panel(n_sites, n_ind, seed, device):
+    """The reference bench's large-cohort fixture: a PANEL_I-individual
+    simulated panel tiled along the individual axis to n_ind (the EM
+    normalises per-individual sums, so trajectories follow the panel's
+    while the kernels walk the whole cohort). Tiled on the device:
+    (gn (S, n_ind, 3) f32, eg (S, n_ind) f32, maf (S,) f32)."""
+    import torch
+    gl, _, _ = _sim_tables(PANEL_I, n_sites, seed)
+    reps = -(-n_ind // PANEL_I)
+    gn = torch.from_numpy(gl.astype(np.float32)).to(device) \
+        .repeat(1, reps, 1)[:, :n_ind].contiguous()
+    eg = gn[..., 1] + 2 * gn[..., 2]
+    maf = (eg.double().mean(dim=1) / 2).float()
+    return gn, eg, maf
+
+
+def _gather_bound(gn, sidx, maf, n_iter):
+    """Bytes once (table, index, MAFs in; three outputs out) and the f64
+    flops of the updates this data needs."""
+    esz, P = gn.element_size(), sidx.shape[1]
+    n_bytes = (gn.numel() + maf.numel()) * esz + sidx.numel() * 4 \
+        + P * (4 * esz + 8)
+    need = _needed_evals(n_iter, gn.shape[1])
+    return (*_bound(n_bytes, need * FLOPS_PER_EVAL), n_bytes, need)
+
+
+def _strip_bound(args, n_iter_live, n_ind):
+    """As phase 3 counts the resident kernel's: the table slices of the
+    distinct anchor and partner tiles read once with their per-site
+    vectors and the tile list, four outputs written once; the EM updates
+    live cells need plus the r2p dot of every cell."""
+    import torch
+    Ip, n = args[0].shape[2], len(args[10])
+    rows_a = len(torch.unique(args[10])) * 128
+    rows_b = len(torch.unique(args[11])) * 128
+    cells = n * 128 * 128
+    n_bytes = (rows_a + rows_b) * Ip * 16 + rows_a * 16 + rows_b * 8 \
+        + n * 8 + cells * (16 + 12)
+    need = _needed_evals(n_iter_live, n_ind)
+    return (*_bound(n_bytes, need * FLOPS_PER_EVAL + cells * 2 * Ip),
+            n_bytes, need)
+
+
+@contextlib.contextmanager
+def _resident_strip_forced():
+    """Send strip_em to the resident kernel whatever the cohort size, to
+    time it beside the streamed one (a measurement aid, not a run mode)."""
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    real = smod.strip_streamed
+    smod.strip_streamed = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        smod.strip_streamed = real
+
+
+def phase_kernel_large(card):
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    from ngsld_tpu_torch.kernels.build import smem_limits
+    dev = torch.device("cuda", 0)
+    report = {}
+    print(f"  shared memory a block may use: {smem_limits(dev)} bytes (default,"
+          f" opt-in); ladder: I = 100 -> {pmod.pick_gather_kernel(100, 4, dev)}"
+          f", {ROWS_I} -> {pmod.pick_gather_kernel(ROWS_I, 4, dev)}, {BIG_I} "
+          f"-> {pmod.pick_gather_kernel(BIG_I, 4, dev)}; strip streamed at "
+          f"I = 100: {smod.strip_streamed(100, dev)}, at {BIG_I}: "
+          f"{smod.strip_streamed(BIG_I, dev)}")
+
+    # ---- small odd sizes: warp and chunk boundaries, a partial last chunk
+    for n_ind, n_pairs, chunks in ((37, 65_536, (16, pmod.I_CHUNK)),
+                                   (1_200, 16_384, (500, pmod.I_CHUNK))):
+        gn, sidx, maf = _table(n_ind, 4_000, n_pairs, n_ind, torch.float32,
+                               dev)
+        for ign in (False, True):
+            tag = f"f32 P={n_pairs} I={n_ind} ignore_miss={ign}"
+            _, n_x0 = _check(pmod.pair_em_rows(gn, sidx, maf, ign),
+                             pmod.pair_em_rows_ref(gn, sidx, maf, ign),
+                             F32_TOL, f"pair_em_rows {tag}")
+            for ic in chunks:
+                if n_ind % ic == 0:
+                    raise AssertionError("the last chunk must be partial")
+                _check(pmod.pair_em_ichunk(gn, sidx, maf, ign, i_chunk=ic),
+                       pmod.pair_em_ichunk_ref(gn, sidx, maf, ign,
+                                               i_chunk=ic),
+                       F32_TOL, f"pair_em_ichunk i_chunk={ic} {tag}")
+            if ign and n_x0 == 0:
+                raise AssertionError(f"{tag}: no x = 0 pairs in the case")
+        if n_ind == 37:   # double tables
+            g64, m64 = gn.double(), maf.double()
+            _check(pmod.pair_em_rows(g64, sidx, m64, True),
+                   pmod.pair_em_rows_ref(g64, sidx, m64, True), F64_TOL,
+                   f"pair_em_rows f64 P={n_pairs} I={n_ind}")
+            _check(pmod.pair_em_ichunk(g64, sidx, m64, True, i_chunk=16),
+                   pmod.pair_em_ichunk_ref(g64, sidx, m64, True, i_chunk=16),
+                   F64_TOL, f"pair_em_ichunk f64 P={n_pairs} I={n_ind}")
+            del g64, m64
+    del gn, sidx, maf
+    for n_ind, ic in ((37, 16), (1_200, smod.IC_STREAM)):
+        with _env(NGSLD_STRIP_STREAM="1", NGSLD_STRIP_IC=str(ic)):
+            args, live, f0_dead = _strip_case(n_ind, 2_048, 16, n_ind, dev,
+                                              i_align=ic)
+            for ign in (False, True):
+                kw = dict(n_ind=n_ind, ignore_miss=ign)
+                n0 = smod.LAUNCHES_STREAM
+                kern = smod.strip_em(*args, **kw)
+                if smod.LAUNCHES_STREAM != n0 + 1:
+                    raise AssertionError("strip_em did not take the streamed "
+                                         "kernel")
+                _check_strip(kern, smod.strip_em_stream_ref(*args, **kw),
+                             live, f0_dead, f"strip_em streamed IC={ic} "
+                             f"tiles=16 I={n_ind} ignore_miss={ign}")
+        del args
+
+    # ---- the large-cohort gather cells: a tiled panel, 2,048 random pairs
+    rng = np.random.default_rng(5)
+    pairs = np.stack([rng.integers(0, 4_096, BIG_P),
+                      rng.integers(0, 4_096, BIG_P)]).astype(np.int32)
+    sidx = torch.from_numpy(pairs).to(dev)
+    for name, n_ind in (("rows", ROWS_I), ("ichunk", BIG_I)):
+        gn, _, maf = _tiled_panel(4_096, n_ind, 3, dev)
+        rung = pmod.pick_gather_kernel(n_ind, 4, dev)
+        if rung != name:
+            raise AssertionError(f"ladder gives {rung} at I = {n_ind}")
+        kern_fn = pmod.GATHER_KERNELS[name]
+        plain_fn = (pmod.pair_em_rows_ref if name == "rows"
+                    else pmod.pair_em_ichunk_ref)
+        label = f"pair_em_{name} f32 P={BIG_P} I={n_ind} (tiled panel)"
+        ms_k, kern = _time(lambda: kern_fn(gn, sidx, maf, False))
+        ms_p, plain = _time(lambda: plain_fn(gn, sidx, maf, False), 1, False)
+        err, _ = _check(kern, plain, F32_TOL, label)
+        _check(kern_fn(gn, sidx, maf, True), plain_fn(gn, sidx, maf, True),
+               F32_TOL, label + " ignore_miss=True")
+        others = {"pair_em_gather": _time(
+            lambda: pmod.pair_em_gather(gn, sidx, maf, False))}
+        if name == "rows":
+            others["pair_em_ichunk"] = _time(
+                lambda: pmod.pair_em_ichunk(gn, sidx, maf, False))
+        for o_name, (_, o_out) in others.items():
+            _check(o_out, kern, F32_TOL, f"{o_name} vs pair_em_{name}, same "
+                   "cell")
+        b_ms, b_by, n_bytes, need = _gather_bound(gn, sidx, maf, kern[1])
+        mean_it = float(kern[1].float().mean()) + 1
+        report[name] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err,
+                            bound_ms=b_ms, bound_by=b_by)
+        print(f"  {label}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
+              + ", ".join(f"{k} {v[0]:.3f} ms" for k, v in others.items())
+              + f" at the same cell; mean nIter {mean_it:.2f}, counted "
+              f"evals/s {need / (ms_k / 1e3):.4e}; bound {b_ms:.3f} ms by "
+              f"{b_by} ({n_bytes} bytes, {need} needed evals x "
+              f"{FLOPS_PER_EVAL} flops) [{card}]")
+        del gn, maf, kern, plain, others
+    del sidx
+
+    # ---- the streamed strip cell: 1,024 sites x 20,000, all pairs
+    ic = smod.strip_i_align(BIG_I, dev)
+    if not smod.strip_streamed(BIG_I, dev) or ic != smod.IC_STREAM:
+        raise AssertionError("I = 20,000 must take the streamed strip kernel")
+    n_tiles = (BIG_STRIP_S // 128) * (BIG_STRIP_S // 128 + 1) // 2
+    for n_ind, ref_tiles, ref_chunk in ((1_200, n_tiles, None),
+                                        (BIG_I, 2, 1_000)):
+        gn, eg, maf = _tiled_panel(BIG_STRIP_S, n_ind, 7, dev)
+        args, live, f0_dead = _strip_args(
+            gn.cpu().numpy(), eg.cpu().numpy(), maf.cpu().numpy(), n_tiles,
+            dev, i_align=ic)
+        del gn, eg
+        kw = dict(n_ind=n_ind)
+        label = (f"strip_em streamed IC={ic} tiles={n_tiles} I={n_ind} "
+                 "(tiled panel)")
+        with _env(NGSLD_STRIP_STREAM="1"):   # I = 1,200 too
+            n0 = smod.LAUNCHES_STREAM
+            ms_k, kern = _time(lambda: smod.strip_em(*args, **kw), 1)
+            if smod.LAUNCHES_STREAM != n0 + 2:
+                raise AssertionError("strip_em did not take the streamed "
+                                     "kernel")
+            # the plain version: every tile at I = 1,200; at I = 20,000 the
+            # first ref_tiles tiles (one diagonal, one full), its sums in
+            # chunks of ref_chunk individuals to keep it to seconds
+            sub = (*args[:10], args[10][:ref_tiles], args[11][:ref_tiles])
+            ms_p, plain = _time(lambda: smod.strip_em_stream_ref(
+                *sub, i_chunk=ref_chunk, **kw), 1, False)
+        err = _check_strip([t[:ref_tiles] for t in kern], plain,
+                           live[:ref_tiles], f0_dead[:int(
+                               (~live[:ref_tiles]).sum())],
+                           label + f", plain on {ref_tiles} tiles")
+        with _resident_strip_forced():
+            n0 = smod.LAUNCHES
+            ms_r, res = _time(lambda: smod.strip_em(*args, **kw), 1)
+            if smod.LAUNCHES != n0 + 2:
+                raise AssertionError("the resident kernel did not run")
+        same = all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                   and torch.equal(a.isnan(), b.isnan())
+                   for a, b in zip(kern, res))
+        if not same:
+            raise AssertionError(f"{label}: the streamed and the resident "
+                                 "kernel differ")
+        live_d = torch.from_numpy(live).to(dev)
+        b_ms, b_by, n_bytes, need = _strip_bound(args, kern[2][live_d], n_ind)
+        print(f"  {label}: streamed kernel {ms_k:.3f} ms, resident kernel "
+              f"{ms_r:.3f} ms at the same cell (outputs bit-equal on all "
+              f"{n_tiles} tiles), plain {ms_p:.3f} ms for {ref_tiles} tiles; "
+              f"{int(live.sum())} live pairs, counted evals/s "
+              f"{need / (ms_k / 1e3):.4e}; bound {b_ms:.3f} ms by {b_by} "
+              f"({n_bytes} bytes, {need} needed evals x {FLOPS_PER_EVAL} "
+              f"flops) [{card}]")
+        if n_ind == BIG_I:
+            report["stream"] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    plain_tiles=ref_tiles)
+        del args, kern, res, plain, live_d
     torch.cuda.synchronize()
     return report
 
@@ -498,6 +755,29 @@ def phase_slice(tmp):
                   f"+{ran.LAUNCHES - n0}; port {t_port:.3f} s, strict "
                   f"{t_strict:.3f} s")
 
+    # the gz-text input through the streamed text loader, and through
+    # strict.read_geno (NGSLD_NO_FASTTEXT=1): the same bytes
+    timings = os.path.join(tmp, "slice_timings.json")
+    outs = {}
+    for name, knob in (("loader", None), ("read_geno", "1")):
+        out = os.path.join(tmp, f"text_{name}.ld")
+        with _env(NGSLD_NO_FASTTEXT=knob, NGSLD_TIMINGS_JSON=timings,
+                  NGSLD_BLOCK_STRIP="0"):
+            rc, err = _cli(beagle + common + ["--out", out])
+        with open(timings) as fh:
+            streamed = json.load(fh)["counters"].get("gl_streamed", 0)
+        if rc != 0 or streamed != (1 if knob is None else 0):
+            raise AssertionError(f"text {name}: rc {rc}, gl_streamed "
+                                 f"{streamed}\n{err[-2000:]}")
+        with open(out, "rb") as fh:
+            outs[name] = fh.read()
+    if outs["loader"] != outs["read_geno"] or outs["loader"].count(b"\n") < 1000:
+        raise AssertionError("gz-text: the streamed loader's rows differ "
+                             "from the strict reader's")
+    print(f"  gz-text 24 x 2,000: {outs['loader'].count(b'\n') - 1} rows "
+          "through the streamed text loader, byte-equal to the run through "
+          "strict.read_geno")
+
     # all-pairs fixture: flat and compact strip emission, byte-equal
     files = write_all(simulate(n_ind=12, n_sites=384, seed=9,
                                contig_kb=500.0), os.path.join(tmp, "allp"))
@@ -570,16 +850,18 @@ def _plan(argv, pos, n_sites):
     return pars, n_pairs, n_blocks
 
 
-def _counted_run(argv, tmp, n_pairs, strip):
+def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000):
     """One run of the port's CLI with rows to a counting sink, the kernels'
     launch counts set to 0 just before it and read just after. strip:
     "1"/"0" forces the sweep, None leaves the engine's auto rule."""
     from ngsld_tpu_torch.kernels import pair_em as pmod
     from ngsld_tpu_torch.kernels import strip_em as smod
     timings = os.path.join(tmp, "timings.json")
-    sink = _CountingStdout(keep_every=max(1, n_pairs // 1000))
+    sink = _CountingStdout(keep_every=max(1, n_pairs // n_keep))
     real_stdout = sys.stdout
-    pmod.LAUNCHES = smod.LAUNCHES = 0   # the path's counts start here
+    # the path's counts start here
+    pmod.LAUNCHES = pmod.LAUNCHES_ROWS = pmod.LAUNCHES_ICHUNK = 0
+    smod.LAUNCHES = smod.LAUNCHES_STREAM = 0
     t0 = time.perf_counter()
     try:
         sys.stdout = sink
@@ -588,7 +870,10 @@ def _counted_run(argv, tmp, n_pairs, strip):
     finally:
         sys.stdout = real_stdout
     wall = time.perf_counter() - t0
-    launches = dict(pair_em=pmod.LAUNCHES, strip_em=smod.LAUNCHES)  # read
+    launches = dict(pair_em=pmod.LAUNCHES, strip_em=smod.LAUNCHES,  # read
+                    pair_em_rows=pmod.LAUNCHES_ROWS,
+                    pair_em_ichunk=pmod.LAUNCHES_ICHUNK,
+                    strip_em_stream=smod.LAUNCHES_STREAM)
     if rc != 0:
         raise AssertionError(f"run rc {rc}\n{err[-4000:]}")
     if sink._tail:
@@ -598,6 +883,10 @@ def _counted_run(argv, tmp, n_pairs, strip):
     with open(timings) as fh:
         tim = json.load(fh)
     return sink, wall, launches, tim, err
+
+
+_NO_LAUNCHES = dict(pair_em=0, strip_em=0, pair_em_rows=0, pair_em_ichunk=0,
+                    strip_em_stream=0)
 
 
 def _sample_vs_strict(sink, sim, pars):
@@ -665,7 +954,7 @@ def phase_real(tmp, card):
     if "==> strip sweep:" not in err:
         raise AssertionError("the auto rule did not take the strip sweep:\n"
                              + err[-3000:])
-    if launches["strip_em"] != chunks or chunks < 1 or launches["pair_em"]:
+    if launches != dict(_NO_LAUNCHES, strip_em=chunks) or chunks < 1:
         raise AssertionError(f"launches {launches} for {chunks} strip chunks")
     n_rows = _sample_vs_strict(sink, sim, pars)
     plan_line = [ln for ln in err.splitlines() if "==> strip sweep:" in ln][0]
@@ -686,7 +975,7 @@ def phase_real(tmp, card):
     argv_c = argv_for(geno_c, pos_c, GATHER_S)
     pars_c, n_pairs_c, n_blocks_c = _plan(argv_c, pos_c, GATHER_S)
     sink, wall_g, launches, tim, _ = _counted_run(argv_c, tmp, n_pairs_c, "0")
-    if launches["pair_em"] != n_blocks_c or launches["strip_em"]:
+    if launches != dict(_NO_LAUNCHES, pair_em=n_blocks_c):
         raise AssertionError(f"launches {launches} for {n_blocks_c} gather "
                              "blocks")
     n_rows = _sample_vs_strict(sink, cut, pars_c)
@@ -718,6 +1007,81 @@ def phase_real(tmp, card):
           f"in the same order, {n_pairs_c - len(diff)} rows byte-equal, the "
           f"other {len(diff)} within the f32 contract")
     return real
+
+
+# --------------------------------------------------------------- phase 5b
+
+def _write_tiled_glf(sim, n_ind, path):
+    """The panel's GLs tiled to n_ind individuals, as a binary file of
+    log-scale doubles (site-major, then individual), written in slabs."""
+    reps = -(-n_ind // sim.n_ind)
+    with np.errstate(divide="ignore"):
+        lg = np.log(sim.gl)
+    lg[np.isneginf(lg)] = -1e15
+    with open(path, "wb") as fh:
+        for s0 in range(0, sim.n_sites, 256):
+            np.tile(lg[s0:s0 + 256], (1, reps, 1))[:, :n_ind] \
+                .astype(np.float64).tofile(fh)
+
+
+def phase_large(tmp, card):
+    from ngsld_tpu_torch.utils.simulate import simulate, write_pos
+
+    t0 = time.perf_counter()
+    sim = simulate(n_ind=PANEL_I, n_sites=BIG_S, seed=19, contig_kb=500.0)
+    d = os.path.join(tmp, "large")
+    os.makedirs(d, exist_ok=True)
+    pos = os.path.join(d, "sim.pos")
+    write_pos(sim, pos)
+    glf = {n: os.path.join(d, f"tiled_{n}.glf") for n in (BIG_I, ROWS_I)}
+    for n, path in glf.items():
+        _write_tiled_glf(sim, n, path)
+    print(f"  fixtures written in {time.perf_counter() - t0:.3f} s "
+          f"({os.path.getsize(glf[BIG_I])} and {os.path.getsize(glf[ROWS_I])}"
+          " bytes of doubles)")
+
+    def argv_for(n_ind, extra):
+        return ["--geno", glf[n_ind], "--log_scale", "--n_ind", str(n_ind),
+                "--n_sites", str(BIG_S), "--pos", pos, "--max_kb_dist", "0",
+                "--max_snp_dist", "128", "--extend_out", *extra,
+                "--verbose", "2"]
+
+    sampled = ["--rnd_sample", "0.1", "--seed", "12345"]
+    out = {}
+    for name, n_ind, extra, kernel, per in (
+            ("dense", BIG_I, [], "strip_em_stream", "chunks"),
+            ("sampled", BIG_I, sampled, "pair_em_ichunk", "blocks"),
+            ("rows", ROWS_I, sampled, "pair_em_rows", "blocks")):
+        argv = argv_for(n_ind, extra)
+        pars, n_pairs, _ = _plan(argv, pos, BIG_S)
+        sink, wall, launches, tim, err = _counted_run(argv, tmp, n_pairs,
+                                                      None, n_keep=200)
+        units = tim["counters"]["blocks_computed"]
+        if launches != dict(_NO_LAUNCHES, **{kernel: units}) or units < 1:
+            raise AssertionError(f"{name}: launches {launches} for {units} "
+                                 f"{per}; expected only {kernel}")
+        if tim["counters"].get("gl_streamed") != 1 or \
+                "  gl stream+upload" not in tim["phases"] or \
+                "Reading data from file" in tim["phases"]:
+            raise AssertionError(f"{name}: the streamed loader did not feed "
+                                 f"the run: {tim['phases']}")
+        if (name == "dense") != ("streamed kernel" in err):
+            raise AssertionError(f"{name}: wrong sweep:\n{err[-3000:]}")
+        n_rows = _sample_vs_strict(sink, sim, pars)
+        up, sweep = tim["phases"]["  gl stream+upload"], \
+            tim["phases"]["compute: banded pair sweep"]
+        print(f"  {name}, {BIG_S} x {n_ind}: {sink.n_lines - 1} rows, "
+              f"{launches[kernel]} {kernel} launches = {per}, no other "
+              f"kernel, the streamed loader fed the run, {n_rows} sampled "
+              f"rows within the f32 contract of strict")
+        print(f"    wall {wall:.3f} s, {n_pairs / wall:.4e} pairs/s; gl "
+              f"stream+upload {up:.3f} s ({up / wall:.4f} of the wall), sweep "
+              f"{sweep:.3f} s [{card}]")
+        print("    phases: " + json.dumps(tim["phases"]))
+        print("    stages: " + json.dumps(tim["stages"]))
+        print("    counters: " + json.dumps(tim["counters"]))
+        out[kernel] = launches[kernel]
+    return out
 
 
 # ---------------------------------------------------------------- phase 6
@@ -757,28 +1121,39 @@ def main() -> int:
         card = _phase(results, "1 environment", phase_env)
         _phase(results, "2 build", phase_build)
         rep = _phase(results, "3 kernel vs plain", lambda: phase_kernel(card))
+        big = _phase(results, "3b large-cohort kernels vs plain",
+                     lambda: phase_kernel_large(card))
         _phase(results, "4 slice vs strict", lambda: phase_slice(tmp))
         real = _phase(results, "5 real size", lambda: phase_real(tmp, card))
+        large = _phase(results, "5b large cohort through the CLI",
+                       lambda: phase_large(tmp, card))
         if real is not None:
             _phase(results, "6 device idle share",
                    lambda: phase_idle(tmp, card, real))
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    f32, strip = rep["f32"], rep["strip"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    # library_ms: no single PyTorch call computes either function
+    # (name, source, the TPU kernel it replaces, launches on its main-path
+    # run, phase 3/3b measurements); library_ms: no single PyTorch call
+    # computes any of these functions
+    rows = [
+        ("pair_em_gather", "pair_em.cu", "pallas_em.py:57",
+         real["gather_launches"], rep["f32"]),
+        ("strip_em", "strip_em.cu", "pallas_strip.py:58",
+         real["strip_launches"], rep["strip"]),
+        ("strip_em_stream", "strip_em_stream.cu", "pallas_strip.py:273",
+         large["strip_em_stream"], big["stream"]),
+        ("pair_em_rows", "pair_em_rows.cu", "pallas_em.py:391",
+         large["pair_em_rows"], big["rows"]),
+        ("pair_em_ichunk", "pair_em_ichunk.cu", "pallas_em.py:558",
+         large["pair_em_ichunk"], big["ichunk"])]
     print(json.dumps({"kernels": [
-        {"name": "pair_em_gather", "route": "cuda",
-         "source": "ngsld_tpu_torch/csrc/pair_em.cu",
-         "replaces": "ngsld_tpu/kernels/pallas_em.py:57",
-         "launches": real["gather_launches"],
-         **{k: f32[k] for k in keys}, "library_ms": None},
-        {"name": "strip_em", "route": "cuda",
-         "source": "ngsld_tpu_torch/csrc/strip_em.cu",
-         "replaces": "ngsld_tpu/kernels/pallas_strip.py:58",
-         "launches": real["strip_launches"],
-         **{k: strip[k] for k in keys}, "library_ms": None}]}))
+        {"name": name, "route": "cuda",
+         "source": f"ngsld_tpu_torch/csrc/{src}",
+         "replaces": f"ngsld_tpu/kernels/{tpu}", "launches": launches,
+         **{k: m[k] for k in keys}, "library_ms": None}
+        for name, src, tpu, launches, m in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

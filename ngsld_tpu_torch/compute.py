@@ -1,6 +1,6 @@
 """Device steps of the sweep, single device (ngsld_tpu/compute.py): the
-gathered-pair block step (:14-28, 64-123) and the strip-chunk steps
-(:139-172).
+gathered-pair block step (:14-28, 64-123), with the ladder that picks its
+EM kernel by cohort size (:99-117), and the strip-chunk steps (:139-172).
 
 The site tables stay on the device; per block only the (2, P) index (or
 the chunk's tile list and sel) crosses over, and only (r2p, hap freqs)
@@ -13,9 +13,13 @@ import functools
 
 import torch
 
-from .kernels.pair_em import pair_em_gather
+from .kernels.pair_em import GATHER_KERNELS, pick_gather_kernel
 from .kernels.strip_em import strip_em_compact, strip_em_flat
 from .ops.stats import pearson_r2
+
+
+# bytes of one gathered E[G] operand of the Pearson r2 step
+_R2P_BYTES = 1 << 28
 
 
 def _imat(n_iter, n_used, ignore_miss_data: bool, n_ind: int):
@@ -34,10 +38,20 @@ def _imat(n_iter, n_used, ignore_miss_data: bool, n_ind: int):
 def compute_block(gn: torch.Tensor, eg: torch.Tensor, maf: torch.Tensor,
                   sidx: torch.Tensor, ignore_miss_data: bool):
     """gn (S, I, 3), eg (S, I), maf (S,) device tables; sidx (2, P) int32
-    -> fmat (P, 5) = [r2p, f0..f3] in the EM dtype, imat (see _imat)."""
+    -> fmat (P, 5) = [r2p, f0..f3] in the EM dtype, imat (see _imat).
+
+    The EM kernel follows the cohort size (pick_gather_kernel): one warp
+    per pair while a pair's rows stay in L1, the rows resident in shared
+    memory up to the card's limit, streamed in chunks beyond it."""
     s1, s2 = sidx[0].long(), sidx[1].long()
-    r2p = pearson_r2(eg.index_select(0, s1), eg.index_select(0, s2))
-    f, n_iter, n_used = pair_em_gather(gn, sidx, maf, ignore_miss_data)
+    # Pearson r2 is row-wise: slices of pairs keep the two gathered (p, I)
+    # operands bounded at large cohorts (one slice at I = 100)
+    step = max(1, _R2P_BYTES // (eg.shape[1] * eg.element_size()))
+    r2p = torch.cat([pearson_r2(eg.index_select(0, s1[i:i + step]),
+                                eg.index_select(0, s2[i:i + step]))
+                     for i in range(0, max(len(s1), 1), step)])
+    rung = pick_gather_kernel(gn.shape[1], gn.element_size(), gn.device)
+    f, n_iter, n_used = GATHER_KERNELS[rung](gn, sidx, maf, ignore_miss_data)
     fmat = torch.cat([r2p[:, None].to(f.dtype), f], dim=1)
     return fmat, _imat(n_iter, n_used, ignore_miss_data, gn.shape[1])
 

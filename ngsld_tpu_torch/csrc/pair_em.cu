@@ -17,8 +17,9 @@
 // rate makes the exact stop point cheap.
 //
 // What bounds it on this card: each (pair, individual, iteration) costs
-// about 44 double-precision flops and one IEEE division, and reads 24
-// bytes of GLs (48 from a double table). A pair's two GL rows are 6*I
+// 40 double-precision flops, one of them an IEEE division (counted in
+// em_core.cuh), and reads 24 bytes of GLs (48 from a double table). A
+// pair's two GL rows are 6*I
 // contiguous values (2.4 KB at I = 100 in float), re-read every
 // iteration; they stay in L1/L2, so the loop is bound by arithmetic and by
 // the per-iteration warp reductions rather than by device memory.
@@ -43,23 +44,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "em_core.cuh"
+
 namespace {
 
+using ngsld::em_term;
+using ngsld::em_update;
+using ngsld::is_miss;
+using ngsld::kEpsilon;
+using ngsld::warp_sum;
+
 constexpr int kIterMax = 100;      // ITER_MAX (gen_func.hpp:18)
-constexpr double kEpsilon = 1e-5;  // EPSILON (gen_func.hpp:16)
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
-  return v;
-}
-
-__device__ __forceinline__ bool is_miss(double g0, double g1, double g2) {
-  return fabs(g0 - g1) < kEpsilon && fabs(g1 - g2) < kEpsilon;
-}
 
 template <typename T, bool kIgnoreMiss>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -99,45 +96,14 @@ pair_em_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
     for (int i = lane; i < I; i += 32) {
       const double x0 = g1[3 * i], x1 = g1[3 * i + 1], x2 = g1[3 * i + 2];
       const double y0 = g2[3 * i], y1 = g2[3 * i + 1], y2 = g2[3 * i + 2];
-      // D_k = sum_{a,b} f[2a+b] g1[a1k+a] g2[a2k+b], through
-      // Q[a][c] = f[2a] g2[c] + f[2a+1] g2[c+1]
-      const double q00 = f0 * y0 + f1 * y1, q01 = f0 * y1 + f1 * y2;
-      const double q10 = f2 * y0 + f3 * y1, q11 = f2 * y1 + f3 * y2;
-      const double d0 = x0 * q00 + x1 * q10;
-      const double d1 = x0 * q01 + x1 * q11;
-      const double d2 = x1 * q00 + x2 * q10;
-      const double d3 = x1 * q01 + x2 * q11;
-      const double s = ((f0 * d0 + f1 * d1) + f2 * d2) + f3 * d3;
-      double inc = 1.0;
-      if (kIgnoreMiss) {
-        inc = (is_miss(x0, x1, x2) || is_miss(y0, y1, y2)) ? 0.0 : 1.0;
-      }
-      // masked reciprocal: excluded individuals add 0 (or NaN at s = 0,
-      // exactly as the plain version's include / s)
-      const double r = inc / s;
-      a0 += d0 * r;
-      a1 += d1 * r;
-      a2 += d2 * r;
-      a3 += d3 * r;
+      em_term<kIgnoreMiss>(x0, x1, x2, y0, y1, y2, f0, f1, f2, f3, a0,
+                           a1, a2, a3);
     }
     a0 = warp_sum(a0);
     a1 = warp_sum(a1);
     a2 = warp_sum(a2);
     a3 = warp_sum(a3);
-    double n0 = f0 * a0 * inv_x, n1 = f1 * a1 * inv_x;
-    double n2 = f2 * a2 * inv_x, n3 = f3 * a3 * inv_x;
-    const double norm = ((n0 + n1) + n2) + n3;
-    n0 = n0 / norm;
-    n1 = n1 / norm;
-    n2 = n2 / norm;
-    n3 = n3 / norm;
-    // NaN-ignoring max fold, as `if (x > eps) eps = x` in the reference
-    double eps = 0, d;
-    d = fabs(n0 - f0); eps = d > eps ? d : eps;
-    d = fabs(n1 - f1); eps = d > eps ? d : eps;
-    d = fabs(n2 - f2); eps = d > eps ? d : eps;
-    d = fabs(n3 - f3); eps = d > eps ? d : eps;
-    f0 = n0; f1 = n1; f2 = n2; f3 = n3;
+    const double eps = em_update(f0, f1, f2, f3, a0, a1, a2, a3, inv_x);
     // every lane holds the same sums; take lane 0's decision so the warp
     // can never split at the break
     if (__shfl_sync(kFullMask, (int)(eps < kEpsilon), 0)) {

@@ -1,0 +1,244 @@
+// Gathered-pair two-locus EM with the individual axis streamed through
+// shared memory, for Hopper (sm_90a), plain C interface.
+//
+// Replaces the TPU kernel ngsld_tpu/kernels/pallas_em.py::_em_kernel_ichunk
+// (with pair_em_ichunk and make_site_table_chunked around it): the gather
+// rung for cohorts of any size. The pair's two GL rows stay in device
+// memory and pass through a double-buffered chunk of i_chunk individuals
+// inside EVERY EM iteration, while the four per-pair sums live in
+// registers across chunks. Inputs and outputs are those of pair_em.cu:
+// gn (S, I, 3), sidx (2, P) int32, maf (S,) -> f (P, 4), n_iter, n_used.
+//
+// Layout: a row of the (S, I, 3) table is contiguous, so a chunk of
+// individuals [c*IC, (c+1)*IC) of a site is ONE contiguous run of 3*IC
+// values. The staged loads therefore need no chunk-major copy of the table
+// and no relayout per block of pairs (the TPU path needs the planar
+// chunk-major table because its lanes want one genotype plane each); the
+// kernel reads words 3 apart from shared memory, free of bank conflicts.
+//
+// Arithmetic, as in pair_em.cu: tables and f in the table dtype, the EM in
+// double with IEEE division, the NaN-ignoring fold `eps = d > eps ? d : eps`
+// from 0, x = 0 pairs frozen at n_iter 0 with NaN f. Build without
+// --use_fast_math.
+//
+// What bounds it on this card: 40 double-precision flops per (pair,
+// individual, iteration) (counted in em_core.cuh) against 24 bytes of
+// float GLs re-read from device memory or L2 every iteration: 1.7 flops a
+// byte, under the card's 10 double flops a byte. So a pair whose rows miss
+// L2 is bound by the bytes it re-reads, while the bound that counts each
+// input once is set by operations.
+//
+// Design: one thread block per pair. cp.async copies chunk g+1 of the
+// stream (iteration-major, chunk-minor; after a pair's last chunk comes
+// chunk 0 of its next iteration) into one buffer while the block computes
+// on chunk g in the other; one __syncthreads per chunk both publishes the
+// landed chunk and retires the buffer about to be overwritten. Copies are
+// 16 bytes wide when the rows and chunks are 16-byte aligned, else one
+// value wide. Per iteration the four sums go through a warp shuffle tree
+// and one shared array, every thread adds the warps' partial sums in the
+// same order, and the stop decision is thread 0's, broadcast by
+// __syncthreads_or. A block that stops waits for its last prefetch before
+// it leaves. The chunk size is a launch argument.
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "em_core.cuh"
+
+namespace {
+
+using ngsld::em_term;
+using ngsld::em_update;
+using ngsld::is_miss;
+using ngsld::kEpsilon;
+using ngsld::warp_sum;
+
+constexpr int kIterMax = 100;      // ITER_MAX (gen_func.hpp:18)
+constexpr int kMaxThreads = 256;
+constexpr int kMaxWarps = kMaxThreads / 32;
+// n contiguous values, device memory -> shared memory, asynchronously
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int n, bool vec16,
+                                      int tid, int nthr) {
+  if (vec16) {
+    constexpr int kPer = 16 / sizeof(T);
+    for (int j = tid; j < n / kPer; j += nthr)
+      __pipeline_memcpy_async(dst + j * kPer, src + j * kPer, 16);
+  } else {
+    for (int j = tid; j < n; j += nthr)
+      __pipeline_memcpy_async(dst + j, src + j, sizeof(T));
+  }
+}
+
+template <typename T, bool kIgnoreMiss>
+__global__ void __launch_bounds__(kMaxThreads)
+pair_em_ichunk_kernel(const T* __restrict__ gn,
+                      const int32_t* __restrict__ sidx,
+                      const T* __restrict__ maf, int64_t P, int I, int IC,
+                      int vec16, T* __restrict__ f_out,
+                      int32_t* __restrict__ n_iter_out,
+                      int32_t* __restrict__ n_used_out) {
+  // two buffers x two sites x (IC, 3)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* __restrict__ bufs = reinterpret_cast<T*>(smem_raw);
+  __shared__ double red[4][kMaxWarps];
+  __shared__ int red_cnt[kMaxWarps];
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int64_t p = blockIdx.x;
+  const int64_t s1 = sidx[p], s2 = sidx[P + p];
+  const T* __restrict__ g1 = gn + s1 * I * 3;
+  const T* __restrict__ g2 = gn + s2 * I * 3;
+  const int n_chunks = (I + IC - 1) / IC;
+
+  auto prefetch = [&](int c, int b) {
+    const int n = 3 * min(IC, I - c * IC);
+    T* d = bufs + (int64_t)b * 2 * 3 * IC;
+    stage(d, g1 + (int64_t)3 * c * IC, n, vec16, tid, nthr);
+    stage(d + 3 * IC, g2 + (int64_t)3 * c * IC, n, vec16, tid, nthr);
+    __pipeline_commit();
+  };
+  prefetch(0, 0);   // in flight under the n_used pass
+
+  int cnt = 0;
+  for (int i = tid; i < I; i += nthr) {
+    if (kIgnoreMiss) {
+      const T* a = g1 + 3 * i;
+      const T* b = g2 + 3 * i;
+      cnt += !(is_miss(a[0], a[1], a[2]) || is_miss(b[0], b[1], b[2]));
+    } else {
+      cnt += 1;
+    }
+  }
+  cnt = warp_sum(cnt);
+  if (lane == 0) red_cnt[warp] = cnt;
+  __syncthreads();
+  cnt = 0;
+  for (int w = 0; w < nwarps; ++w) cnt += red_cnt[w];
+  const double inv_x = 1.0 / (double)cnt;
+
+  const double m1 = maf[s1], m2 = maf[s2];
+  double f0 = (1.0 - m1) * (1.0 - m2), f1 = (1.0 - m1) * m2;
+  double f2 = m1 * (1.0 - m2), f3 = m1 * m2;
+
+  int n_iter = kIterMax;
+  int b = 0;   // the buffer that holds (or is receiving) the current chunk
+  for (int it = 0; it < kIterMax; ++it) {
+    double a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      __pipeline_wait_prior(0);
+      // the chunk has landed for every thread, and every thread is done
+      // with the other buffer
+      __syncthreads();
+      const int cn = c + 1 < n_chunks ? c + 1 : 0;
+      if (cn != 0 || it + 1 < kIterMax) prefetch(cn, b ^ 1);
+      const T* __restrict__ r1 = bufs + (int64_t)b * 2 * 3 * IC;
+      const T* __restrict__ r2 = r1 + 3 * IC;
+      const int n_i = min(IC, I - c * IC);
+      for (int i = tid; i < n_i; i += nthr) {
+        const double x0 = r1[3 * i], x1 = r1[3 * i + 1], x2 = r1[3 * i + 2];
+        const double y0 = r2[3 * i], y1 = r2[3 * i + 1], y2 = r2[3 * i + 2];
+        em_term<kIgnoreMiss>(x0, x1, x2, y0, y1, y2, f0, f1, f2, f3, a0,
+                             a1, a2, a3);
+      }
+      b ^= 1;
+    }
+    a0 = warp_sum(a0);
+    a1 = warp_sum(a1);
+    a2 = warp_sum(a2);
+    a3 = warp_sum(a3);
+    if (lane == 0) {
+      red[0][warp] = a0;
+      red[1][warp] = a1;
+      red[2][warp] = a2;
+      red[3][warp] = a3;
+    }
+    __syncthreads();
+    a0 = a1 = a2 = a3 = 0;
+    for (int w = 0; w < nwarps; ++w) {
+      a0 += red[0][w];
+      a1 += red[1][w];
+      a2 += red[2][w];
+      a3 += red[3][w];
+    }
+    const double eps = em_update(f0, f1, f2, f3, a0, a1, a2, a3, inv_x);
+    // thread 0 decides for the block; the barrier also frees `red`
+    if (__syncthreads_or(tid == 0 && eps < kEpsilon)) {
+      n_iter = it;
+      break;
+    }
+  }
+  // no copy may still be writing this block's shared memory when it leaves
+  __pipeline_wait_prior(0);
+
+  if (tid == 0) {
+    f_out[4 * p + 0] = (T)f0;
+    f_out[4 * p + 1] = (T)f1;
+    f_out[4 * p + 2] = (T)f2;
+    f_out[4 * p + 3] = (T)f3;
+    n_iter_out[p] = n_iter;
+    n_used_out[p] = cnt;
+  }
+}
+
+template <typename T, bool kIgnoreMiss>
+int launch_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
+               int IC, T* fo, int32_t* it, int32_t* nu, cudaStream_t st) {
+  const size_t smem = 2 * 2 * 3 * (size_t)IC * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_em_ichunk_kernel<T, kIgnoreMiss>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte copies need every row, every chunk and the table itself on
+  // 16-byte boundaries
+  constexpr int kPer = 16 / sizeof(T);
+  const int vec16 = (3 * (int64_t)I) % kPer == 0 && (3 * IC) % kPer == 0 &&
+                    reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  int threads = 64;
+  while (threads < kMaxThreads && threads * 4 < IC) threads <<= 1;
+  pair_em_ichunk_kernel<T, kIgnoreMiss><<<(unsigned)P, threads, smem, st>>>(
+      g, ix, m, P, I, IC, vec16, fo, it, nu);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* gn, const void* sidx, const void* maf, int64_t P,
+           int I, int IC, int ignore_miss, void* f, void* n_iter,
+           void* n_used, void* stream) {
+  if (P <= 0) return 0;
+  if (P > 0x7fffffff || I <= 0 || IC <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* g = static_cast<const T*>(gn);
+  const int32_t* ix = static_cast<const int32_t*>(sidx);
+  const T* m = static_cast<const T*>(maf);
+  T* fo = static_cast<T*>(f);
+  int32_t* it = static_cast<int32_t*>(n_iter);
+  int32_t* nu = static_cast<int32_t*>(n_used);
+  return ignore_miss
+             ? launch_one<T, true>(g, ix, m, P, I, IC, fo, it, nu, st)
+             : launch_one<T, false>(g, ix, m, P, I, IC, fo, it, nu, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+int ngsld_pair_em_ichunk_f32(const void* gn, const void* sidx,
+                             const void* maf, int64_t P, int I, int i_chunk,
+                             int ignore_miss, void* f, void* n_iter,
+                             void* n_used, void* stream) {
+  return launch<float>(gn, sidx, maf, P, I, i_chunk, ignore_miss, f, n_iter,
+                       n_used, stream);
+}
+
+int ngsld_pair_em_ichunk_f64(const void* gn, const void* sidx,
+                             const void* maf, int64_t P, int I, int i_chunk,
+                             int ignore_miss, void* f, void* n_iter,
+                             void* n_used, void* stream) {
+  return launch<double>(gn, sidx, maf, P, I, i_chunk, ignore_miss, f, n_iter,
+                        n_used, stream);
+}
+
+}  // extern "C"

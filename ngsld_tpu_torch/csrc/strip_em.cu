@@ -32,9 +32,10 @@
 // wherever eps falls within that rounding of EPSILON.
 //
 // What bounds it on this card: each (cell, individual, iteration) costs
-// about 44 double-precision flops and one IEEE double division against 24
-// bytes of float loads that almost always hit L1 (below), so the loop is
-// bound by double-precision arithmetic, not by device memory.
+// 40 double-precision flops, one of them an IEEE division (counted in
+// em_core.cuh), against 24 bytes of float loads that almost always hit L1
+// (below), so the loop is bound by double-precision arithmetic, not by
+// device memory.
 //
 // Design: one thread per cell, its four frequencies and four sums in
 // registers, so every pair freezes on its own and no cross-lane reduction
@@ -50,15 +51,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "em_core.cuh"
+
 namespace {
 
-constexpr double kEpsilon = 1e-5;  // EPSILON (gen_func.hpp:16)
+using ngsld::em_term;
+using ngsld::em_update;
+using ngsld::is_miss;
+using ngsld::kEpsilon;
+
 constexpr int kRows = 8;           // anchors per block
 constexpr int kCols = 32;          // partners per block: one warp per row
-
-__device__ __forceinline__ bool is_miss(double g0, double g1, double g2) {
-  return fabs(g0 - g1) < kEpsilon && fabs(g1 - g2) < kEpsilon;
-}
 
 template <bool kIgnoreMiss>
 __global__ void __launch_bounds__(kRows * kCols)
@@ -120,41 +123,10 @@ strip_em_kernel(const float* __restrict__ ga, const float* __restrict__ gb,
         const int64_t o = (int64_t)i * Sb;
         const double x0 = xa0[i], x1 = xa1[i], x2 = xa2[i];
         const double y0 = yb0[o], y1 = yb1[o], y2 = yb2[o];
-        // D_k = sum_{a,b} f[2a+b] x[a1k+a] y[a2k+b], through
-        // Q[a][c] = f[2a] y[c] + f[2a+1] y[c+1]
-        const double q00 = f0 * y0 + f1 * y1, q01 = f0 * y1 + f1 * y2;
-        const double q10 = f2 * y0 + f3 * y1, q11 = f2 * y1 + f3 * y2;
-        const double d0 = x0 * q00 + x1 * q10;
-        const double d1 = x0 * q01 + x1 * q11;
-        const double d2 = x1 * q00 + x2 * q10;
-        const double d3 = x1 * q01 + x2 * q11;
-        const double s = ((f0 * d0 + f1 * d1) + f2 * d2) + f3 * d3;
-        double inc = 1.0;
-        if (kIgnoreMiss) {
-          inc = (is_miss(x0, x1, x2) || is_miss(y0, y1, y2)) ? 0.0 : 1.0;
-        }
-        // masked reciprocal: excluded individuals add 0 (or NaN at s = 0,
-        // exactly as the plain version's include / s)
-        const double r = inc / s;
-        a0 += d0 * r;
-        a1 += d1 * r;
-        a2 += d2 * r;
-        a3 += d3 * r;
+        em_term<kIgnoreMiss>(x0, x1, x2, y0, y1, y2, f0, f1, f2, f3, a0,
+                             a1, a2, a3);
       }
-      double n0 = f0 * a0 * inv_x, n1 = f1 * a1 * inv_x;
-      double n2 = f2 * a2 * inv_x, n3 = f3 * a3 * inv_x;
-      const double norm = ((n0 + n1) + n2) + n3;
-      n0 = n0 / norm;
-      n1 = n1 / norm;
-      n2 = n2 / norm;
-      n3 = n3 / norm;
-      // NaN-ignoring max fold, as `if (x > eps) eps = x` in the reference
-      double eps = 0, d;
-      d = fabs(n0 - f0); eps = d > eps ? d : eps;
-      d = fabs(n1 - f1); eps = d > eps ? d : eps;
-      d = fabs(n2 - f2); eps = d > eps ? d : eps;
-      d = fabs(n3 - f3); eps = d > eps ? d : eps;
-      f0 = n0; f1 = n1; f2 = n2; f3 = n3;
+      const double eps = em_update(f0, f1, f2, f3, a0, a1, a2, a3, inv_x);
       if (eps < kEpsilon) {
         n_iter = it;
         break;

@@ -1,12 +1,16 @@
 """Single-device block sweep: ngsld_tpu/engine_block._run_jax_body in
 PyTorch, with its two sweep modes.
 
-  host: read GLs (strict.read_geno) and positions (strict.read_pos)
-  dev:  upload once, preprocess (call_geno, MAF, normal-space GLs, E[G])
+  host: read GLs and positions (strict.read_pos). Binary and gz-text
+        input stream to the device slab by slab (loaders); anything the
+        loaders decline goes through strict.read_geno and one upload
+  dev:  preprocess (call_geno, MAF, normal-space GLs, E[G]); streamed
+        binary records are normalised here too (raw=True)
   host: MAF to host (f64 copy), knife-edge MAF repair, banded pair plan
         (plan.band.iter_pair_blocks) on a prefetch thread
   dev:  gather mode, per block: one (2, P) int32 index upload, Pearson r2
-        + pair EM (compute.compute_block)
+        + pair EM (compute.compute_block; the EM kernel follows the
+        cohort size)
         strip mode, per chunk of <= GMAXT tiles: the tile list (and sel)
         upload, rectangle EM + r2 (compute.strip_compute_fn/strip_flat_fn)
         from strip tables built once on the device
@@ -15,7 +19,9 @@ PyTorch, with its two sweep modes.
 
 Strip mode is f32-only and is picked when the plan is dense over its
 rectangles (effective utilization >= NGSLD_STRIP_MIN_UTIL on a CUDA
-device); NGSLD_BLOCK_STRIP=1/0 forces it on/off. Both modes regroup the
+device); NGSLD_BLOCK_STRIP=1/0 forces it on/off. Large cohorts take the
+streamed strip kernel (kernels.strip_em.strip_streamed), whose tables pad
+the individual axis to its chunk. Both modes regroup the
 same iter_pair_blocks stream, so their pair sets are identical by
 construction. A strip kernel that fails to build or launch ends the run
 with its error: there is no retry on the gather sweep.
@@ -36,7 +42,8 @@ from . import compute, strict
 from .checkpoint import _Checkpoint
 from .hostcols import _prefetch_blocks, _unpack
 from .io.writer import RowWriter
-from .kernels.strip_em import strip_tables
+from .kernels.strip_em import strip_i_align, strip_streamed, strip_tables
+from .loaders import _StreamedGLLoader, _StreamedTextLoader
 from .native import (LabelBlob, format_rows_derive, get_lib,
                      make_labels_blob)
 from .ops.preprocess import preprocess
@@ -55,10 +62,22 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
     dt = torch.float64 if prec == "f64" else torch.float32
     np_dt = np.float64 if prec == "f64" else np.float32
 
-    with log.phase("Reading data from file"):
-        geno_log = strict.read_geno(pars.in_geno, pars.in_bin, pars.in_probs,
-                                    pars.in_logscale, pars.n_ind,
-                                    pars.n_sites)
+    loader = None
+    raw_gl = False   # the loader delivers UNNORMALISED records
+    if _StreamedGLLoader.applicable(pars):
+        # binary input: file slabs stream to the device while the positions
+        # parse below; normalisation happens on the device
+        loader = _StreamedGLLoader(pars, np_dt, device)
+        raw_gl = True
+    elif _StreamedTextLoader.applicable(pars):
+        # gz-text input: native line parsing streams to the device the same
+        # way; records arrive already log-normalised
+        loader = _StreamedTextLoader(pars, np_dt, device)
+    else:
+        with log.phase("Reading data from file"):
+            geno_log = strict.read_geno(pars.in_geno, pars.in_bin,
+                                        pars.in_probs, pars.in_logscale,
+                                        pars.n_ind, pars.n_sites)
     with log.phase("Getting sites coordinates"):
         if pars.in_pos:
             pos_dist, labels = strict.read_pos(
@@ -71,16 +90,23 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
             log.log(6, f"{s}\t{pos_dist[s]:f}")
 
     with log.phase("Preprocessing (call_geno, MAF, E[G]) on device"):
-        # narrow on the host first: GLs cross to the device once, at the
-        # EM precision
-        with log.phase("  gl upload", level=2):
-            gl_d = torch.from_numpy(np.asarray(geno_log, np_dt)).to(device)
-            del geno_log
+        if loader is not None:
+            with log.phase("  gl stream+upload", level=2):
+                gl_d = loader.join()
+            log.count("gl_streamed")
+        else:
+            # narrow on the host first: GLs cross to the device once, at
+            # the EM precision
+            with log.phase("  gl upload", level=2):
+                gl_d = torch.from_numpy(
+                    np.asarray(geno_log, np_dt)).to(device)
+                del geno_log
         with log.phase("  preprocess", level=2):
             gn_d, maf_d, eg_d = preprocess(
                 gl_d, call=pars.call_geno, N_thresh=pars.N_thresh,
                 call_thresh=pars.call_thresh,
-                ignore_miss_data=pars.ignore_miss_data)
+                ignore_miss_data=pars.ignore_miss_data,
+                raw=raw_gl, in_log=pars.in_logscale)
             del gl_d
         # only MAF returns to the host (the plan needs it); the GL/E[G]
         # tables stay on the device for the sweep
@@ -143,12 +169,18 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
             log.log(2, f"==> strip sweep skipped: eff util {u_eff:.3f} < "
                        f"{min_util} (gather path)")
     if strip_mode:
+        # past the resident kernel's cohort limit strip_em takes the
+        # streamed kernel, and the tables pad the individual axis to its
+        # chunk
+        s_streamed = strip_streamed(pars.n_ind, device)
+        s_ialign = strip_i_align(pars.n_ind, device)
         with log.phase("strip tables (device)"):
             pad = Sp_b - pars.n_sites
             s_ga, s_gb, s_ea, s_eb = strip_tables(
                 torch.nn.functional.pad(gn_d, (0, 0, 0, 0, 0, pad),
                                         value=1.0 / 3.0),
-                torch.nn.functional.pad(eg_d, (0, 0, 0, pad)), pars.n_ind)
+                torch.nn.functional.pad(eg_d, (0, 0, 0, pad)), pars.n_ind,
+                i_align=s_ialign)
             # the gather tables are dead weight in strip mode
             del gn_d, eg_d, maf_d
         s_maf = torch.from_numpy(np.pad(
@@ -166,7 +198,9 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
         CTARGET = int(os.environ.get("NGSLD_STRIP_CTARGET", str(1 << 20)))
         TA_TB = TA * TB
         log.log(2, f"==> strip sweep: {len(s_ta)} tiles, chunk<= {GMAXT} "
-                   f"tiles/{CTARGET} pairs, util {s_util:.2f}")
+                   f"tiles/{CTARGET} pairs, util {s_util:.2f}"
+                   + (f", streamed kernel (I-chunk {s_ialign})"
+                      if s_streamed else ""))
 
     ckpt = None
     if pars.checkpoint:
@@ -177,6 +211,9 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
         if strip_mode:
             extra = {"mode": "strip", "ta": TA, "tb": TB, "gmaxt": GMAXT,
                      "ctarget": CTARGET, "order": "anchor", "prec": prec}
+            if s_streamed:
+                # the streamed kernel's chunk sets its summation order
+                extra["ic"] = s_ialign
         else:
             extra = {"chunk": chunk, "prec": prec}
         ckpt = _Checkpoint(pars.checkpoint, pars, log, extra=extra)

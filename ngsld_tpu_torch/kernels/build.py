@@ -1,7 +1,7 @@
 """Build the CUDA kernels of csrc/ into shared libraries, at first use.
 
-nvcc compiles each of the repository's .cu sources (and nothing else)
-into its own shared library with a plain C interface, loaded with ctypes.
+nvcc compiles each of the repository's .cu sources (with the .cuh headers
+beside them, and nothing else) into its own shared library with a plain C interface, loaded with ctypes.
 All missing libraries build at once, one nvcc process per source, started
 together. The outputs go to ngsld_tpu_torch/.build/, keyed by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged
@@ -32,14 +32,25 @@ _LIBS: dict = {}
 
 _vp, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # source name -> {entry point: argtypes}; every entry point returns the
-# cudaError of its launch as an int
+# cudaError of its launch as an int (ngsld_strip_em_stream_smem: bytes)
 ENTRY_POINTS = {
     "pair_em": {
         name: [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp]
         for name in ("ngsld_pair_em_f32", "ngsld_pair_em_f64")},
+    "pair_em_rows": {
+        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp]
+           for name in ("ngsld_pair_em_rows_f32", "ngsld_pair_em_rows_f64")},
+        "ngsld_smem_limits": [_vp]},
+    "pair_em_ichunk": {
+        name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp]
+        for name in ("ngsld_pair_em_ichunk_f32", "ngsld_pair_em_ichunk_f64")},
     "strip_em": {
         "ngsld_strip_em": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 6
         + [_vp] * 5},
+    "strip_em_stream": {
+        "ngsld_strip_em_stream": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 7
+        + [_vp] * 5,
+        "ngsld_strip_em_stream_smem": [_i32]},
 }
 
 
@@ -62,10 +73,13 @@ def sources() -> dict:
 
 
 def library_path(name: str) -> str:
-    """Where the library for the source's current text and flags lives."""
+    """Where the library for the source's current text (with the headers
+    of csrc/, which any source may include) and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(sources()[name], "rb") as fh:
-        h.update(fh.read())
+    for path in [sources()[name],
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"ngsld_{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -113,3 +127,27 @@ def get_library(name: str) -> ctypes.CDLL:
                 fn.argtypes = argtypes
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+# (per block, per block after opting in) of an H100, bytes: what the kernel
+# routing assumes for CPU tensors, so that a CPU run takes the rungs a card
+# run would; a CUDA device is asked
+NOMINAL_SMEM = (49152, 232448)
+
+
+def smem_limits(device) -> tuple[int, int]:
+    """Shared memory a block may use on `device`, bytes: (without opting
+    in, with cudaFuncAttributeMaxDynamicSharedMemorySize). A CUDA device is
+    asked through csrc/pair_em_rows.cu; for the CPU the H100's figures
+    stand in."""
+    import torch
+    device = torch.device(device)
+    if device.type != "cuda":
+        return NOMINAL_SMEM
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = get_library("pair_em_rows").ngsld_smem_limits(
+            ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ngsld_smem_limits failed: cudaError {err}")
+    return int(out[0]), int(out[1])

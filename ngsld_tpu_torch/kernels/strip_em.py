@@ -3,10 +3,18 @@ the two emission epilogues (ngsld_tpu/kernels/pallas_strip.py).
 
 A tile is a rectangle of pairs, anchors [ta*TA, (ta+1)*TA) x partners
 [tb*TB, (tb+1)*TB), computed from contiguous slices of the strip tables
-(no gathers). strip_em runs a list of tiles: on CUDA tensors it launches
-csrc/strip_em.cu (the port of pallas_strip._strip_kernel) or raises; on
-CPU tensors it runs strip_em_ref, the plain PyTorch version. LAUNCHES
-counts kernel launches, nothing else.
+(no gathers). strip_em runs a list of tiles. On CUDA tensors it launches
+a kernel or raises: csrc/strip_em.cu (the port of
+pallas_strip._strip_kernel; a block's strips stay in L1), or, when
+strip_streamed(n_ind) says the strips no longer fit,
+csrc/strip_em_stream.cu (the port of pallas_strip._strip_ichunk_kernel;
+the individual axis streams through shared memory in chunks, and the
+tables must be padded to the chunk: strip_tables(i_align=
+strip_i_align(n_ind))). On CPU tensors it runs the matching plain PyTorch
+version, strip_em_ref or strip_em_stream_ref. LAUNCHES and LAUNCHES_STREAM
+count the two kernels' launches, nothing else. NGSLD_STRIP_STREAM=1
+forces the streamed kernel at any cohort size and NGSLD_STRIP_IC sets its
+chunk (the reference package's test knobs).
 
 Per cell (a, b): live iff lo[a] <= b < hi[a] and both sites ok. Live
 cells run the two-locus EM of ops/em.py to their own convergence; dead
@@ -21,10 +29,22 @@ from __future__ import annotations
 
 import torch
 
+import os
+
 from ..constants import EPSILON, ITER_MAX
 from ..plan.strips import TA, TB
+from .build import smem_limits
 
-LAUNCHES = 0
+LAUNCHES = 0          # csrc/strip_em.cu
+LAUNCHES_STREAM = 0   # csrc/strip_em_stream.cu
+
+# individuals per staged chunk of the streamed kernel: two buffers of
+# 4 planes x (8 anchors + 32 partners) x 32 x 4 bytes = 40 KB of shared
+# memory a block, five blocks an SM
+IC_STREAM = 32
+# bytes of GLs one block of the resident kernel re-reads every iteration,
+# per individual: 3 planes x (8 anchors + 32 partners) x 4
+_RESIDENT_BYTES_PER_IND = 480
 
 # plain version: tiles per batch are bounded so that one f64
 # (tiles, TA, I, TB) plane stays under this many bytes
@@ -56,13 +76,38 @@ def strip_tables(gn: torch.Tensor, eg: torch.Tensor, n_ind: int,
     return ga, gb, et, et.t().contiguous()
 
 
+def _ic_stream() -> int:
+    return int(os.environ.get("NGSLD_STRIP_IC", IC_STREAM))
+
+
+def strip_streamed(n_ind: int, device="cpu") -> bool:
+    """Whether strip_em takes the streamed kernel for this cohort: when the
+    strips a block of the resident kernel re-reads every iteration (480
+    bytes an individual) no longer fit the shared memory/L1 of one SM (the
+    opt-in limit: beyond 484 individuals on an H100; the CPU path assumes
+    that card). The kernel's design limit, not a measured crossover.
+    NGSLD_STRIP_STREAM=1 forces it at any cohort size."""
+    if os.environ.get("NGSLD_STRIP_STREAM") == "1":
+        return True
+    return _RESIDENT_BYTES_PER_IND * n_ind > smem_limits(device)[1]
+
+
+def strip_i_align(n_ind: int, device="cpu") -> int:
+    """Individual-axis padding quantum strip_tables must use so the tables
+    match the kernel strip_em will pick for this cohort size."""
+    return _ic_stream() if strip_streamed(n_ind, device) else 8
+
+
 def _is_miss(g0, g1, g2):
     return ((g0 - g1).abs() < EPSILON) & ((g1 - g2).abs() < EPSILON)
 
 
 def _ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
-               I, iter_cap, ignore_miss, ta_sz, tb_sz):
-    """Plain EM for one batch of tiles, on (n, TA, I, TB) broadcasts."""
+               I, iter_cap, ignore_miss, ta_sz, tb_sz, i_chunk=None):
+    """Plain EM for one batch of tiles, on (n, TA, chunk, TB) broadcasts:
+    the whole cohort at once (i_chunk None), or chunk after chunk of
+    i_chunk individuals with the sums carried across, as the streamed
+    kernel walks them."""
     dev = ga.device
     f64 = torch.float64
     n = ta.shape[0]
@@ -72,17 +117,25 @@ def _ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
     x = [ga[c][ar][:, :, :I, None].to(f64) for c in range(3)]
     y = [gb[c][:I][:, bc].permute(1, 0, 2)[:, None].to(f64)
          for c in range(3)]
-    corr = torch.matmul(ea[ar].to(f64), eb[:, bc].permute(1, 0, 2).to(f64))
+    Ip = ga.shape[2]
+    chunks = [(c0, min(c0 + (i_chunk or I), I))
+              for c0 in range(0, I, i_chunk or I)]
+    ea_t, eb_t = ea[ar].to(f64), eb[:, bc].permute(1, 0, 2).to(f64)
+    corr = None
+    for c0 in range(0, Ip, i_chunk or Ip):
+        part = torch.matmul(ea_t[:, :, c0:c0 + (i_chunk or Ip)],
+                            eb_t[:, c0:c0 + (i_chunk or Ip)])
+        corr = part if corr is None else corr + part
     r2p = (corr * corr).to(torch.float32)
 
     if ignore_miss:
-        inc = ~(_is_miss(*x) | _is_miss(*y))                 # (n,TA,I,TB)
-        n_used = inc.sum(dim=2).to(torch.int32)
-        incf = inc.to(f64)
+        # per side; a chunk's (n, TA, chunk, TB) inclusion is their product
+        keep_x, keep_y = ~_is_miss(*x), ~_is_miss(*y)
+        n_used = sum((keep_x[:, :, c0:c1] & keep_y[:, :, c0:c1]).sum(dim=2)
+                     for c0, c1 in chunks).to(torch.int32)
     else:
         n_used = torch.full((n, ta_sz, tb_sz), I, dtype=torch.int32,
                             device=dev)
-        incf = torch.ones((), dtype=f64, device=dev)
     inv_x = (1.0 / n_used.to(f64))[:, :, None, :]            # (n,TA,1,TB)
 
     ma = maf_a[ar].to(f64)[:, :, None, None]
@@ -97,16 +150,26 @@ def _ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
                         device=dev)
     it = 0
     while it < iter_cap and bool(active.any()):
-        # D_k = sum_{a,b} f[2a+b] x[a1k+a] y[a2k+b], through
-        # Q[a][c] = f[2a] y[c] + f[2a+1] y[c+1]
-        q00, q01 = f[0] * y[0] + f[1] * y[1], f[0] * y[1] + f[1] * y[2]
-        q10, q11 = f[2] * y[0] + f[3] * y[1], f[2] * y[1] + f[3] * y[2]
-        D = [x[0] * q00 + x[1] * q10, x[0] * q01 + x[1] * q11,
-             x[1] * q00 + x[2] * q10, x[1] * q01 + x[2] * q11]
-        s = ((f[0] * D[0] + f[1] * D[1]) + f[2] * D[2]) + f[3] * D[3]
-        r = incf / s    # masked reciprocal; excluded individuals add 0
-        f_new = [f[k] * (D[k] * r).sum(dim=2, keepdim=True) * inv_x
-                 for k in range(4)]
+        S = [None] * 4
+        for c0, c1 in chunks:
+            xc = [t[:, :, c0:c1] for t in x]
+            yc = [t[:, :, c0:c1] for t in y]
+            # D_k = sum_{a,b} f[2a+b] x[a1k+a] y[a2k+b], through
+            # Q[a][c] = f[2a] y[c] + f[2a+1] y[c+1]
+            q00 = f[0] * yc[0] + f[1] * yc[1]
+            q01 = f[0] * yc[1] + f[1] * yc[2]
+            q10 = f[2] * yc[0] + f[3] * yc[1]
+            q11 = f[2] * yc[1] + f[3] * yc[2]
+            D = [xc[0] * q00 + xc[1] * q10, xc[0] * q01 + xc[1] * q11,
+                 xc[1] * q00 + xc[2] * q10, xc[1] * q01 + xc[2] * q11]
+            s = ((f[0] * D[0] + f[1] * D[1]) + f[2] * D[2]) + f[3] * D[3]
+            # masked reciprocal; excluded individuals add 0
+            r = (keep_x[:, :, c0:c1] & keep_y[:, :, c0:c1]).to(f64) / s \
+                if ignore_miss else 1.0 / s
+            for k in range(4):
+                part = (D[k] * r).sum(dim=2, keepdim=True)
+                S[k] = part if S[k] is None else S[k] + part
+        f_new = [f[k] * S[k] * inv_x for k in range(4)]
         norm = ((f_new[0] + f_new[1]) + f_new[2]) + f_new[3]
         f_next = [torch.where(active, f_new[k] / norm, f[k])
                   for k in range(4)]
@@ -128,16 +191,16 @@ def _ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
 def strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
                  *, n_ind: int, iter_cap: int = ITER_MAX,
                  ignore_miss: bool = False, ta_sz: int = TA,
-                 tb_sz: int = TB):
-    """Plain PyTorch version of strip_em: same arguments, same outputs.
-    Tiles go through in bounded batches so a chunk of hundreds of tiles
-    fits in memory."""
+                 tb_sz: int = TB, i_chunk: int | None = None):
+    """Plain PyTorch version of strip_em's resident kernel: same arguments,
+    same outputs. Tiles go through in bounded batches so a chunk of
+    hundreds of tiles fits in memory."""
     n = ta.shape[0]
-    per_tile = 8 * ta_sz * max(n_ind, 1) * tb_sz
+    per_tile = 8 * ta_sz * max(min(n_ind, i_chunk or n_ind), 1) * tb_sz
     nb = max(1, _REF_PLANE_BYTES // per_tile)
     outs = [_ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b,
                        ta[i:i + nb], tb[i:i + nb], n_ind, iter_cap,
-                       ignore_miss, ta_sz, tb_sz)
+                       ignore_miss, ta_sz, tb_sz, i_chunk)
             for i in range(0, n, nb)]
     if not outs:
         dev = ga.device
@@ -146,6 +209,21 @@ def strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
                 torch.empty((0, ta_sz, tb_sz), dtype=torch.int32, device=dev),
                 torch.empty((0, ta_sz, tb_sz), dtype=torch.int32, device=dev))
     return tuple(torch.cat([o[k] for o in outs]) for k in range(4))
+
+
+def strip_em_stream_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b,
+                        ta, tb, *, n_ind: int, iter_cap: int = ITER_MAX,
+                        ignore_miss: bool = False, ta_sz: int = TA,
+                        tb_sz: int = TB, i_chunk: int | None = None):
+    """Plain PyTorch version of the streamed kernel: strip_em_ref with the
+    sums over individuals (the EM's four, n_used and the r2p dot) taken
+    chunk by chunk in index order. i_chunk defaults to the tables' chunk
+    (NGSLD_STRIP_IC); any other value is the same function with another
+    summation order."""
+    return strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta,
+                        tb, n_ind=n_ind, iter_cap=iter_cap,
+                        ignore_miss=ignore_miss, ta_sz=ta_sz, tb_sz=tb_sz,
+                        i_chunk=int(i_chunk or _ic_stream()))
 
 
 def _check(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
@@ -193,19 +271,39 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
     coordinates; ta/tb (n,) int32 tile coordinates in ta_sz/tb_sz units.
     The caller guarantees every tile lies inside the tables
     ((ta+1)*ta_sz <= Sa, (tb+1)*tb_sz <= Sb). Returns f (n, 4, TA, TB)
-    f32, r2p (n, TA, TB) f32, n_iter and n_used (n, TA, TB) int32."""
-    global LAUNCHES
+    f32, r2p (n, TA, TB) f32, n_iter and n_used (n, TA, TB) int32.
+
+    Cohorts past the resident kernel's limit (strip_streamed) take the
+    streamed kernel; their tables must be built with
+    strip_tables(..., i_align=strip_i_align(n_ind)), else ValueError."""
+    global LAUNCHES, LAUNCHES_STREAM
     _check(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, n_ind,
            ta_sz, tb_sz)
+    if ga.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no strip-EM kernel for device {ga.device}")
     kw = dict(n_ind=n_ind, iter_cap=iter_cap, ignore_miss=ignore_miss,
               ta_sz=ta_sz, tb_sz=tb_sz)
+    streamed = strip_streamed(n_ind, ga.device)
+    if streamed:
+        ic = _ic_stream()
+        if ic < 1 or ga.shape[2] % ic:   # tables built without the chunk
+            raise ValueError(
+                f"streamed strip kernel needs Ip % {ic} == 0; build tables "
+                "with strip_tables(..., i_align=strip_i_align(n_ind)) (got "
+                f"Ip={ga.shape[2]})")
     if ga.device.type == "cpu":
-        return strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a,
-                            ok_b, ta, tb, **kw)
-    if ga.device.type != "cuda":
-        raise ValueError(f"no strip-EM kernel for device {ga.device}")
+        ref = strip_em_stream_ref if streamed else strip_em_ref
+        return ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
+                   **kw)
     from .build import get_library
-    lib = get_library("strip_em")
+    lib = get_library("strip_em_stream" if streamed else "strip_em")
+    if streamed:
+        need, limit = lib.ngsld_strip_em_stream_smem(ic), \
+            smem_limits(ga.device)[1]
+        if need > limit:
+            raise ValueError(
+                f"streamed strip kernel: chunk {ic} needs {need} bytes of "
+                f"shared memory, the device allows {limit}")
     tens = [t.contiguous() for t in (ga, gb, ea, eb, maf_a, maf_b, lo, hi,
                                      ok_a, ok_b, ta, tb)]
     n, dev = ta.shape[0], ga.device
@@ -215,17 +313,24 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
     n_used = torch.empty((n, ta_sz, tb_sz), dtype=torch.int32, device=dev)
     if n == 0:
         return f, r2p, n_iter, n_used
+    shape = (n, ga.shape[1], gb.shape[2], ga.shape[2], n_ind)
+    tail = (ta_sz, tb_sz, iter_cap, int(bool(ignore_miss)), f.data_ptr(),
+            r2p.data_ptr(), n_iter.data_ptr(), n_used.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ngsld_strip_em(
-            *[t.data_ptr() for t in tens], n, ga.shape[1], gb.shape[2],
-            ga.shape[2], n_ind, ta_sz, tb_sz, iter_cap,
-            int(bool(ignore_miss)), f.data_ptr(), r2p.data_ptr(),
-            n_iter.data_ptr(), n_used.data_ptr(), stream)
+        ptrs = [t.data_ptr() for t in tens]
+        if streamed:
+            err = lib.ngsld_strip_em_stream(*ptrs, *shape, ic, *tail, stream)
+        else:
+            err = lib.ngsld_strip_em(*ptrs, *shape, *tail, stream)
     if err != 0:
         raise RuntimeError(
-            f"strip_em CUDA kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+            f"{'strip_em_stream' if streamed else 'strip_em'} CUDA kernel "
+            f"launch failed: cudaError {err}")
+    if streamed:
+        LAUNCHES_STREAM += 1
+    else:
+        LAUNCHES += 1
     return f, r2p, n_iter, n_used
 
 

@@ -1,0 +1,245 @@
+"""Host->device input loaders of the torch engine (ngsld_tpu/loaders.py).
+
+Two streaming paths, both with the reference's exact read semantics
+(read_data.cpp:13-116):
+  * _StreamedGLLoader    binary doubles: slab reader + uploader threads
+  * _StreamedTextLoader  gz text through the native chunk parser
+
+Each replaces read -> f64 normalise -> f32 narrow -> one monolithic upload
+(three serial passes over the data) with a pipeline: a reader thread
+produces slabs at the engine's precision, an uploader thread copies each
+to the device, join() concatenates them there. On a CUDA device a slab
+crosses from pinned host memory with a non-blocking copy on a side stream;
+join() synchronises that stream before the table is handed over. Not
+carried over: the tunnel keep-alive hooks, the site-sharded ring loader
+and the overlap ingest.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+
+import numpy as np
+import torch
+
+from . import strict
+
+
+class _SlabUploader:
+    """The part both loaders share: a bounded queue of host slabs, an
+    uploader thread, and join()."""
+
+    def __init__(self, pars, np_dtype, device, name: str):
+        self._pars = pars
+        self._dt = np_dtype
+        self._device = torch.device(device)
+        self._cuda = self._device.type == "cuda"
+        self._stream = torch.cuda.Stream(self._device) if self._cuda else None
+        self._q = queue.Queue(maxsize=2)
+        self._slabs = []    # device slabs, file order
+        self._pinned = []   # host sides of copies still in flight
+        self._err = []
+        self.n_slabs = 0    # set by join()
+        self._reader = threading.Thread(
+            target=self._read_guarded, daemon=True, name=f"ngsld-{name}-read")
+        self._uploader = threading.Thread(
+            target=self._upload, daemon=True, name=f"ngsld-{name}-upload")
+        self._reader.start()
+        self._uploader.start()
+
+    def _read(self):
+        raise NotImplementedError
+
+    def _read_guarded(self):
+        try:
+            self._read()
+        except BaseException as e:
+            self._err.append(e)
+        self._q.put(None)
+
+    def _upload(self):
+        try:
+            while True:
+                a = self._q.get()
+                if a is None:
+                    return
+                t = torch.from_numpy(a)
+                if self._cuda:
+                    # the copy runs on the side stream while the reader
+                    # fills the next slab; the pinned slab must outlive it
+                    t = t.pin_memory()
+                    with torch.cuda.stream(self._stream):
+                        self._slabs.append(
+                            t.to(self._device, non_blocking=True))
+                    self._pinned.append(t)
+                else:
+                    self._slabs.append(t)
+        except BaseException as e:
+            self._err.append(e)
+            # drain so the reader never blocks on a full queue
+            while self._q.get() is not None:
+                pass
+
+    def join(self) -> torch.Tensor:
+        """The whole (n_sites, n_ind, 3) table on the device; raises the
+        reader's error (the reference's NaN and EOF semantics)."""
+        self._reader.join()
+        self._uploader.join()
+        if self._err:
+            raise self._err[0]
+        if self._cuda:
+            self._stream.synchronize()
+            self._pinned.clear()
+            # later work runs on the current stream
+            torch.cuda.current_stream(self._device).wait_stream(self._stream)
+        self.n_slabs = len(self._slabs)
+        out = (torch.cat(self._slabs, dim=0) if self.n_slabs > 1
+               else self._slabs[0])
+        self._slabs = []
+        return out
+
+
+class _StreamedGLLoader(_SlabUploader):
+    """Binary GL fast path: np.fromfile slabs in a reader thread, uploads in
+    an uploader thread, one device-side concatenate at join().
+
+    The records arrive UNNORMALISED; normalisation moves into the device
+    preprocess (ops.preprocess raw=True). Only used when the file size
+    matches exactly (ngsLD.cpp:55 semantics): anything else goes through
+    strict.read_geno, which raises the reference's exact errors.
+
+    NaN parity: the reference errors on NaN after post_prob
+    (read_data.cpp:44-45). Raw NaN inputs are checked per slab; all-(-inf)
+    log-scale records (which post_prob turns into NaN) are too.
+    """
+
+    SLAB_BYTES = 256 << 20
+
+    @staticmethod
+    def applicable(pars) -> bool:
+        if not pars.in_bin or os.environ.get("NGSLD_NO_FASTBIN") == "1":
+            return False
+        try:
+            size = os.path.getsize(pars.in_geno)
+        except OSError:
+            return False
+        return size == pars.n_sites * pars.n_ind * 3 * 8
+
+    def __init__(self, pars, np_dtype, device):
+        super().__init__(pars, np_dtype, device, "gl")
+
+    def _read(self):
+        p = self._pars
+        n, m = p.n_sites, p.n_ind
+        # NGSLD_SLAB_BYTES: test/tuning override (small values force the
+        # multi-slab path on tiny fixtures)
+        slab_bytes = int(os.environ.get("NGSLD_SLAB_BYTES", self.SLAB_BYTES))
+        slab_sites = max(1, slab_bytes // (m * 3 * 8))
+        with open(p.in_geno, "rb") as fh:
+            s = 0
+            while s < n:
+                k = min(slab_sites, n - s)
+                a = np.fromfile(fh, dtype=np.float64,
+                                count=k * m * 3).reshape(k, m, 3)
+                a = a.astype(self._dt, copy=False)
+                # NaN parity checks on the NARROWED slab (half the bytes),
+                # mirroring the reference's NaN-after-post_prob error
+                # (read_data.cpp:42-45): raw NaN; +inf anywhere (inf - inf
+                # in the normalise); log-scale all-(-inf) records
+                # (-inf - -inf); linear-scale negatives (log -> NaN). Linear
+                # zeros are FINE: conv_space clamps the -inf to a finite
+                # -INF (gen_func.cpp:127-128). The one deviation: a finite
+                # f64 > f32-max narrows to +inf and errors here where the
+                # f64 reference would accept it; use --precision f64 for
+                # such (pathological) inputs.
+                bad = np.isnan(a).any() or np.isposinf(a).any()
+                if not bad:
+                    if p.in_logscale:
+                        bad = np.isneginf(a).all(axis=-1).any()
+                    else:
+                        bad = bool((a < 0).any())
+                if bad:
+                    raise strict.StrictError(
+                        "read_geno", "NaN found! Is the file format correct?")
+                self._q.put(a)
+                s += k
+
+
+class _StreamedTextLoader(_SlabUploader):
+    """gz-text GL fast path (Beagle probs / called-genotype formats):
+    decompressed chunks parse through the native line parser in a reader
+    thread while an uploader thread copies the slabs to the device. Records
+    arrive already log-normalised (the parser is the code path of the
+    native read_geno), so the engine's standard (raw=False) preprocess
+    applies.
+
+    EOF parity with read_geno (read_data.cpp:33,106-109): fewer lines than
+    n_sites -> 'premature EOF'; ANY byte after the n_sites-th record ->
+    'not at EOF'. NGSLD_NO_FASTTEXT=1 opts out."""
+
+    CHUNK_BYTES = 48 << 20
+
+    @staticmethod
+    def applicable(pars) -> bool:
+        if pars.in_bin or os.environ.get("NGSLD_NO_FASTTEXT") == "1":
+            return False
+        try:
+            from .native import get_lib
+            return get_lib() is not None
+        except Exception:
+            return False
+
+    def __init__(self, pars, np_dtype, device):
+        super().__init__(pars, np_dtype, device, "gltext")
+
+    def _read(self):
+        from .native import parse_geno_text_native
+        p = self._pars
+        n = p.n_sites
+        # NGSLD_SLAB_BYTES caps the decompressed bytes parsed at once, as
+        # it caps the binary loader's slab (small values force several
+        # slabs on tiny fixtures)
+        chunk_bytes = min(self.CHUNK_BYTES, int(os.environ.get(
+            "NGSLD_SLAB_BYTES", self.CHUNK_BYTES)))
+        with strict.open_maybe_gz(p.in_geno, "rb") as fh:
+            carry = b""
+            s = 0
+            leftover = b""
+            while True:
+                data = fh.read(chunk_bytes)
+                eof = not data
+                buf = carry + data
+                if eof:
+                    if not buf:
+                        break
+                    chunk, carry = buf + b"\n", b""  # final bare line
+                else:
+                    cut = buf.rfind(b"\n")
+                    if cut < 0:
+                        carry = buf
+                        continue
+                    chunk, carry = buf[:cut + 1], buf[cut + 1:]
+                if s >= n:
+                    leftover = chunk
+                    break
+                recs, used = parse_geno_text_native(
+                    chunk, p.in_probs, p.in_logscale, p.n_ind, s,
+                    min(chunk.count(b"\n"), n - s))
+                if len(recs):
+                    self._q.put(np.ascontiguousarray(recs, dtype=self._dt))
+                s += len(recs)
+                if used < len(chunk):
+                    leftover = chunk[used:]
+                    break
+                if eof:
+                    break
+            if s < n:
+                raise strict.StrictError(
+                    "read_geno", "GENO file at premature EOF. "
+                    "Check GENO file and number of sites!")
+            if leftover or carry or fh.read(1):
+                raise strict.StrictError(
+                    "read_geno", "GENO file not at EOF. "
+                    "Check GENO file and number of sites!")

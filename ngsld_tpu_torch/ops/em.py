@@ -27,7 +27,18 @@ from .preprocess import miss_mask
 _KBITS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
-def _em_update(f, gl1, gl2, include, inv_x):
+def _isum(t, i_chunk):
+    """Sum over the individual axis: at once, or chunk by chunk in index
+    order as the streamed kernels accumulate it."""
+    if i_chunk is None:
+        return t.sum(dim=1)
+    acc = None
+    for part in t.split(i_chunk, dim=1):
+        acc = part.sum(dim=1) if acc is None else acc + part.sum(dim=1)
+    return acc
+
+
+def _em_update(f, gl1, gl2, include, inv_x, i_chunk=None):
     """One EM step for all pairs. f: (P,4); gl1/gl2: (P,I,3);
     include: (P,I) float mask; inv_x: (P,) = 1/n_used."""
     D = []
@@ -42,18 +53,20 @@ def _em_update(f, gl1, gl2, include, inv_x):
         t = f[:, k, None] * D[k]
         s = t if s is None else s + t
     r = include / s  # masked reciprocal; excluded inds contribute 0
-    f_new = [f[:, k] * (D[k] * r).sum(dim=1) * inv_x for k in range(4)]
+    f_new = [f[:, k] * _isum(D[k] * r, i_chunk) * inv_x for k in range(4)]
     norm = ((f_new[0] + f_new[1]) + f_new[2]) + f_new[3]
     return torch.stack([fk / norm for fk in f_new], dim=1)
 
 
 def pair_em(gl1: torch.Tensor, gl2: torch.Tensor, maf1: torch.Tensor,
-            maf2: torch.Tensor, ignore_miss_data: bool, live=None):
+            maf2: torch.Tensor, ignore_miss_data: bool, live=None,
+            i_chunk: int | None = None):
     """EM haplotype frequencies for P pairs.
 
     Returns (f (P,4), n_iter (P,) int32, n_used (P,) int32). live (P,)
     bool (optional): pairs outside it freeze at the f0 init with
-    n_iter == ITER_MAX."""
+    n_iter == ITER_MAX. i_chunk: add the per-individual terms up in chunks
+    of that many individuals (the streamed kernels' order)."""
     dt = gl1.dtype
     P = gl1.shape[0]
     f = torch.stack([(1 - maf1) * (1 - maf2), (1 - maf1) * maf2,
@@ -72,7 +85,7 @@ def pair_em(gl1: torch.Tensor, gl2: torch.Tensor, maf1: torch.Tensor,
     n_iter = torch.full((P,), ITER_MAX, dtype=torch.int32, device=gl1.device)
     it = 0
     while it < ITER_MAX and bool(active.any()):
-        f_new = _em_update(f, gl1, gl2, incf, inv_x)
+        f_new = _em_update(f, gl1, gl2, incf, inv_x, i_chunk)
         f_next = torch.where(active[:, None], f_new, f)
         diffs = (f_next - f).abs()
         # NaN-ignoring max fold (`if (x > eps) eps = x`); torch.maximum

@@ -1,5 +1,5 @@
 """The port's own copies of the host modules (ngsld_tpu_torch/{strict,
-gsl_rng,config,cli,refine,checkpoint,hostcols}.py, plan/band.py,
+gsl_rng,config,cli,refine,checkpoint,hostcols,loaders}.py, plan/band.py,
 io/writer.py, utils/simulate.py, native/) against the JAX package's: the
 same inputs, made from a numpy seed, go through both packages and the
 outputs are equal exactly. With and without the native library
@@ -16,6 +16,7 @@ import ngsld_tpu.checkpoint as j_ckpt
 import ngsld_tpu.cli as j_cli
 import ngsld_tpu.engine_block as j_eb
 import ngsld_tpu.gsl_rng as j_rng
+import ngsld_tpu.loaders as j_loaders
 import ngsld_tpu.native as j_native
 import ngsld_tpu.refine as j_refine
 import ngsld_tpu.strict as j_strict
@@ -24,6 +25,7 @@ import ngsld_tpu_torch.checkpoint as t_ckpt
 import ngsld_tpu_torch.cli as t_cli
 import ngsld_tpu_torch.gsl_rng as t_rng
 import ngsld_tpu_torch.hostcols as t_hc
+import ngsld_tpu_torch.loaders as t_loaders
 import ngsld_tpu_torch.native as t_native
 import ngsld_tpu_torch.refine as t_refine
 import ngsld_tpu_torch.strict as t_strict
@@ -340,3 +342,26 @@ def test_checkpoint_copy_roundtrip(files, tmp_path):
     with pytest.raises(t_strict.StrictError, match="different run"):
         t_ckpt._Checkpoint(str(tmp_path / "ck"), tp, log, extra={"chunk": 6})
     assert not hasattr(t_ckpt, "_RingSpill")
+
+
+def test_loaders_copy_keeps_the_rules_and_imports_only_the_port():
+    """loaders.py is a port, not a copy (torch uploads in the place of
+    jax.device_put): it keeps the reference's class names, slab sizes and
+    knobs, and imports neither jax nor the JAX package. What it delivers is
+    held against the JAX loaders in tests/test_torch_loaders.py."""
+    import inspect
+    import re
+    for name in ("_StreamedGLLoader", "_StreamedTextLoader"):
+        assert hasattr(t_loaders, name) and hasattr(j_loaders, name)
+    assert t_loaders._StreamedGLLoader.SLAB_BYTES == \
+        j_loaders._StreamedGLLoader.SLAB_BYTES == 256 << 20
+    assert t_loaders._StreamedTextLoader.CHUNK_BYTES == \
+        j_loaders._StreamedTextLoader.CHUNK_BYTES == 48 << 20
+    src = inspect.getsource(t_loaders)
+    assert not re.search(r"^\s*(import|from)\s+(jax|ngsld_tpu)(\.|\s|$)", src,
+                         re.M)
+    for knob in ("NGSLD_NO_FASTBIN", "NGSLD_NO_FASTTEXT", "NGSLD_SLAB_BYTES"):
+        assert knob in src and knob in inspect.getsource(j_loaders)
+    # waiting for their slices: the ring loader and the overlap ingest
+    assert not hasattr(t_loaders, "_ring_sharded_tables")
+    assert not hasattr(t_loaders, "_OverlapIngest")

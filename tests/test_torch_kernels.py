@@ -84,7 +84,8 @@ def test_failed_compile_raises_with_nvcc_stderr(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="error: boom") as ei:
         build.build_libraries()
     # one nvcc per source, and every failure is reported
-    assert "pair_em.cu" in str(ei.value) and "strip_em.cu" in str(ei.value)
+    assert all(f"{name}.cu" in str(ei.value) for name in build.sources())
+    assert len(build.sources()) == 5
     assert os.listdir(tmp_path / "out") == []
 
 
@@ -95,7 +96,8 @@ def test_library_path_keys_on_sources_and_flags(monkeypatch):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("pair_em") != a
     assert sorted(build.sources()) == sorted(build.ENTRY_POINTS) \
-        == ["pair_em", "strip_em"]
+        == ["pair_em", "pair_em_ichunk", "pair_em_rows", "strip_em",
+            "strip_em_stream"]
     assert all(s.endswith(".cu") for s in build.sources().values())
     assert "--use_fast_math" not in build.NVCC_FLAGS
 

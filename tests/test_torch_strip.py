@@ -39,6 +39,12 @@ from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
 def ask_for_the_cpu(monkeypatch):
     # the engine runs on the card unless the caller asks for the CPU
     monkeypatch.setenv("NGSLD_PLATFORM", "cpu")
+    # the plain version runs many small tensor ops: more threads only
+    # fight the other test workers for the cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ the planner
