@@ -2,6 +2,10 @@
 """Smoke test of the PyTorch port (ngsld_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --strip-only   # a short look at the two strip
+                                         # kernels: phases 1, 2, 3c and the
+                                         # strip cells of 3 and 3b; prints
+                                         # neither the kernels line nor ok
 
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
@@ -13,9 +17,11 @@ Phases, each printing its result and seconds on its own line:
      included), at I = 37 and I = 1,200; strip_em at the strip path's
      256-tile chunk x 100 individuals (all-pairs tiles of a 4,096-site
      table, diagonal tiles with dead halves and full tiles,
-     --ignore_miss_data off and on) and 16 tiles at I = 37 and I = 1,200;
-     f to f's rounding, nIter and n_used exact; kernel and plain times,
-     and each kernel's bound on this card
+     --ignore_miss_data off and on; the same launch at three repack
+     intervals) and 16 tiles at I = 37 and I = 200; f to f's rounding,
+     nIter and n_used exact; kernel and plain times, each kernel's bound
+     on this card, and the strip kernel's lane efficiency read from its
+     own nIter
   3b. the large-cohort kernels against their plain versions: pair_em_rows,
      pair_em_ichunk and the streamed strip_em at I = 37 and 1,200 (chunks
      with a partial last one, dead cells, x = 0 pairs, --ignore_miss_data
@@ -23,9 +29,18 @@ Phases, each printing its result and seconds on its own line:
      simulated panel tiled to the cohort size: pair_em_rows at 2,048 pairs
      x 4,000, pair_em_ichunk at 2,048 pairs x 20,000, the streamed strip_em
      on the 36 all-pairs tiles of 1,024 sites x 20,000 (against the plain
-     version on 2 tiles there and on all 36 tiles at I = 1,200, and bit
-     for bit against the resident kernel on all 36). Beside each new
-     kernel's time, the older kernel's time at the same cell
+     version on 2 tiles there, on 8 at I = 1,200 and on all 36 at I = 200,
+     where it is also held against the resident kernel on all 36), each
+     at three chunk sizes. Beside each gather kernel's time, the older
+     kernel's time at the same cell
+  3c. the strip kernels' design: the instructions of each kernel's EM
+     inner loop by class and its registers (cuobjdump of the built
+     libraries); inputs that aim at the repack through both kernels
+     (warps with one live cell, a single live cell, iteration caps 0, 1, 3
+     and around the repack interval, x = 0 cells, --ignore_miss_data);
+     both kernels on the same 64 tiles at cohort sizes up to and past the
+     resident kernel's shared-memory limit, where the wrapper must refuse
+     it
   4. the slice vs the strict oracle: the port's CLI on the card against
      --engine strict, 24 x 2,000 fixture, four flag variants, each
      through the gather sweep and through the strip sweep; the gz-text
@@ -256,9 +271,12 @@ def _strip_case(n_ind, n_sites, n_tiles, seed, device, i_align=8):
     return _strip_args(gl, eg, maf, n_tiles, device, i_align)
 
 
-def _strip_args(gl, eg, maf, n_tiles, device, i_align=8):
+def _strip_args(gl, eg, maf, n_tiles, device, i_align=8, ok_a=None,
+                ok_b=None):
     """strip_em's arguments, the live mask and the dead cells' f0 for the
-    first n_tiles all-pairs tiles of the tables gl (S, I, 3), eg, maf."""
+    first n_tiles all-pairs tiles of the tables gl (S, I, 3), eg, maf.
+    ok_a / ok_b (S,) 0/1: sites usable as anchor / as partner (all, when
+    None); the tile list is the plan's for all sites usable."""
     import torch
     from ngsld_tpu_torch.kernels.strip_em import strip_tables
     from ngsld_tpu_torch.plan.strips import TA, strip_plan
@@ -283,13 +301,18 @@ def _strip_args(gl, eg, maf, n_tiles, device, i_align=8):
                                 constant_values=0.5)).to(device)
     lo = torch.arange(1, Sp + 1, dtype=torch.int32, device=device)
     hi_d = torch.from_numpy(hi.astype(np.int32)).to(device)
-    ok_d = torch.from_numpy(ok).to(device)
-    args = (*tabs, m, m, lo, hi_d, ok_d, ok_d,
+    oka, okb = ok.copy(), ok.copy()
+    if ok_a is not None:
+        oka[:S] = ok_a
+    if ok_b is not None:
+        okb[:S] = ok_b
+    args = (*tabs, m, m, lo, hi_d, torch.from_numpy(oka).to(device),
+            torch.from_numpy(okb).to(device),
             torch.from_numpy(ta).to(device), torch.from_numpy(tb).to(device))
     # live mask on the host, (n, TA, TB), for the dead-cell check
     A = ta.astype(np.int64)[:, None, None] * TA + np.arange(TA)[None, :, None]
     B = tb.astype(np.int64)[:, None, None] * TA + np.arange(TA)[None, None, :]
-    live = (B > A) & (B < hi[A]) & (ok[A] > 0) & (ok[B] > 0)
+    live = (B > A) & (B < hi[A]) & (oka[A] > 0) & (okb[B] > 0)
     # the f0 init of the dead cells, as the kernel computes it: in double
     # from the f32 MAFs, rounded to f32
     mp = np.pad(maf.astype(f32), (0, Sp - S),
@@ -302,10 +325,12 @@ def _strip_args(gl, eg, maf, n_tiles, device, i_align=8):
     return args, live, f0_dead
 
 
-def _check_strip(kern, plain, live, f0_dead, label, iter_cap=100):
+def _check_strip(kern, plain, live, f0_dead, label, iter_cap=100,
+                 quiet=False):
     """Strip kernel vs plain version, every cell: n_used and nIter exact,
     f within F32_TOL with NaN positions equal, r2p within R2P_TOL with NaN
-    positions equal; dead cells at the f0 init with nIter == iter_cap."""
+    positions equal; dead cells at the f0 init with nIter == iter_cap.
+    Prints one line unless quiet; returns max |df|."""
     fk, rk, itk, nuk = (t.cpu().numpy() for t in kern)
     fp, rp, itp, nup = (t.cpu().numpy() for t in plain)
     if not np.array_equal(nuk, nup):
@@ -336,24 +361,32 @@ def _check_strip(kern, plain, live, f0_dead, label, iter_cap=100):
         if not np.array_equal(np.moveaxis(f, 1, -1)[~live], f0_dead):
             raise AssertionError(f"{label}: dead cells not at f0 ({name})")
     x0 = live & (nup == 0)
-    if x0.any() and not (np.isnan(np.moveaxis(fk, 1, -1)[x0]).all()
-                         and (itk[x0] == 0).all()):
+    if iter_cap > 0 and x0.any() and not (
+            np.isnan(np.moveaxis(fk, 1, -1)[x0]).all()
+            and (itk[x0] == 0).all()):
         raise AssertionError(f"{label}: n_used = 0 cells not frozen at "
                              "nIter 0 with NaN f")
-    print(f"  {label}: max|df| {f_err:.3e} (tol {F32_TOL:g}), max|dr2p| "
-          f"{r_err:.3e} (tol {R2P_TOL:g}), nIter and n_used exact on "
-          f"{itk.size} cells ({int(live.sum())} live, {int(x0.sum())} with "
-          "n_used 0)")
+    if not quiet:
+        print(f"  {label}: max|df| {f_err:.3e} (tol {F32_TOL:g}), max|dr2p| "
+              f"{r_err:.3e} (tol {R2P_TOL:g}), nIter and n_used exact on "
+              f"{itk.size} cells ({int(live.sum())} live, {int(x0.sum())} "
+              "with n_used 0)")
     return f_err
 
 
-def phase_kernel(card):
+def phase_kernel(card, strip_only=False):
+    report = {}
+    if not strip_only:
+        _gather_cells(card, report)
+    _strip_cells(card, report)
+    return report
+
+
+def _gather_cells(card, report):
     import torch
     from ngsld_tpu_torch.kernels.pair_em import (pair_em_gather,
                                                  pair_em_gather_ref)
-    from ngsld_tpu_torch.kernels.strip_em import strip_em, strip_em_ref
     dev = torch.device("cuda", 0)
-    report = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         tag = "f32" if dtype == torch.float32 else "f64"
         gn, sidx, maf = _table(MAIN_I, 20_000, MAIN_P, 5, dtype, dev)
@@ -395,7 +428,29 @@ def phase_kernel(card):
                    pair_em_gather_ref(gn, sidx, maf, ign), F32_TOL,
                    f"pair_em f32 P={n_pairs} I={n_ind} ignore_miss={ign}")
     del gn, sidx, maf
+    torch.cuda.synchronize()
 
+
+def _lane_line(label, n_iter, live_d, n_ind, rows, round_iters):
+    """Print the lane efficiency of one strip launch, from its n_iter: of
+    the one-thread-a-cell layout the kernels had, and of a block of
+    rows x 32 threads that repacks every round_iters iterations."""
+    from ngsld_tpu_torch.utils.devtrace import lane_efficiency
+    old = lane_efficiency(n_iter, live_d, n_ind)
+    eff = lane_efficiency(n_iter, live_d, n_ind, rows=rows,
+                          round_iters=round_iters)
+    print(f"  {label}: lane efficiency (needed / executed updates, from the "
+          f"kernel's n_iter): one thread a cell, warp of 32 partners "
+          f"{old['warp']:.4f}, 8 x 32 block {old['block']:.4f}; {rows} x 32 "
+          f"block repacked every {round_iters} iteration(s) "
+          f"{eff['repacked']:.4f}; {eff['needed']} needed evals")
+
+
+def _strip_cells(card, report):
+    import torch
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    from ngsld_tpu_torch.kernels.strip_em import strip_em, strip_em_ref
+    dev = torch.device("cuda", 0)
     # ---- strip_em at the strip path's chunk: 256 tiles x I = 100
     args, live, f0_dead = _strip_case(MAIN_I, STRIP_S, STRIP_TILES, 5, dev)
     n_diag = int((args[10] == args[11]).sum())
@@ -436,21 +491,31 @@ def phase_kernel(card):
                   f"{evals / (ms_k / 1e3):.4e}; bound {b_ms:.3f} ms by "
                   f"{b_by} ({n_bytes} bytes, {need} needed evals x "
                   f"{FLOPS_PER_EVAL} flops) [{card}]")
+            _lane_line(label, kern[2], live_d, MAIN_I, 8, smod.ROUND_ITERS)
+            # the repack interval: the same launch at three values
+            k_ms = {}
+            for k in (1, 2, 4):
+                with _attr(smod, "ROUND_ITERS", k):
+                    k_ms[k], out = _time(lambda: strip_em(*args, **kw))
+                _hold_between(out, kern, f"{label}: ROUND_ITERS = {k}")
+            print(f"  {label}: ms by iterations between repacks "
+                  + json.dumps(k_ms) + f" (ROUND_ITERS = {smod.ROUND_ITERS})"
+                  f" [{card}]")
     del args
-    for n_ind in (37, 1_200):
+    for n_ind in (37, 200):
         args, live, f0_dead = _strip_case(n_ind, 2_048, 16, n_ind, dev)
         for ign in (False, True):
             kw = dict(n_ind=n_ind, ignore_miss=ign)
-            # the resident kernel, also past the size at which strip_em
-            # would pick the streamed one
-            with _resident_strip_forced():
-                kern = strip_em(*args, **kw)
+            n0 = smod.LAUNCHES
+            kern = strip_em(*args, **kw)
+            if smod.LAUNCHES != n0 + 1:
+                raise AssertionError("strip_em did not take the resident "
+                                     "kernel")
             _check_strip(kern, strip_em_ref(*args, **kw),
                          live, f0_dead, f"strip_em tiles=16 I={n_ind} "
                          f"ignore_miss={ign}")
         del args
     torch.cuda.synchronize()
-    return report
 
 
 # --------------------------------------------------------------- phase 3b
@@ -499,19 +564,24 @@ def _strip_bound(args, n_iter_live, n_ind):
 
 
 @contextlib.contextmanager
+def _attr(obj, name, value):
+    """Set an attribute for the length of a block (a measurement aid)."""
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
 def _resident_strip_forced():
     """Send strip_em to the resident kernel whatever the cohort size, to
     time it beside the streamed one (a measurement aid, not a run mode)."""
     from ngsld_tpu_torch.kernels import strip_em as smod
-    real = smod.strip_streamed
-    smod.strip_streamed = lambda *a, **k: False
-    try:
-        yield
-    finally:
-        smod.strip_streamed = real
+    return _attr(smod, "strip_streamed", lambda *a, **k: False)
 
 
-def phase_kernel_large(card):
+def phase_kernel_large(card, strip_only=False):
     import torch
     from ngsld_tpu_torch.kernels import pair_em as pmod
     from ngsld_tpu_torch.kernels import strip_em as smod
@@ -524,7 +594,17 @@ def phase_kernel_large(card):
           f"-> {pmod.pick_gather_kernel(BIG_I, 4, dev)}; strip streamed at "
           f"I = 100: {smod.strip_streamed(100, dev)}, at {BIG_I}: "
           f"{smod.strip_streamed(BIG_I, dev)}")
+    if not strip_only:
+        _gather_cells_large(card, report)
+    _strip_cells_large(card, report)
+    torch.cuda.synchronize()
+    return report
 
+
+def _gather_cells_large(card, report):
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
     # ---- small odd sizes: warp and chunk boundaries, a partial last chunk
     for n_ind, n_pairs, chunks in ((37, 65_536, (16, pmod.I_CHUNK)),
                                    (1_200, 16_384, (500, pmod.I_CHUNK))):
@@ -554,6 +634,13 @@ def phase_kernel_large(card):
                    F64_TOL, f"pair_em_ichunk f64 P={n_pairs} I={n_ind}")
             del g64, m64
     del gn, sidx, maf
+    _gather_cells_big(card, report)
+
+
+def _strip_cells_large(card, report):
+    import torch
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    dev = torch.device("cuda", 0)
     for n_ind, ic in ((37, 16), (1_200, smod.IC_STREAM)):
         with _env(NGSLD_STRIP_STREAM="1", NGSLD_STRIP_IC=str(ic)):
             args, live, f0_dead = _strip_case(n_ind, 2_048, 16, n_ind, dev,
@@ -569,7 +656,13 @@ def phase_kernel_large(card):
                              live, f0_dead, f"strip_em streamed IC={ic} "
                              f"tiles=16 I={n_ind} ignore_miss={ign}")
         del args
+    _strip_cell_big(card, report)
 
+
+def _gather_cells_big(card, report):
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
     # ---- the large-cohort gather cells: a tiled panel, 2,048 random pairs
     rng = np.random.default_rng(5)
     pairs = np.stack([rng.integers(0, 4_096, BIG_P),
@@ -610,65 +703,271 @@ def phase_kernel_large(card):
         del gn, maf, kern, plain, others
     del sidx
 
-    # ---- the streamed strip cell: 1,024 sites x 20,000, all pairs
+
+def _strip_cell_big(card, report):
+    import torch
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    dev = torch.device("cuda", 0)
+    # ---- the streamed strip cell: 1,024 sites x 20,000, all pairs; the
+    # same tiles at 200 individuals, where the resident kernel still runs,
+    # and at 1,200
     ic = smod.strip_i_align(BIG_I, dev)
     if not smod.strip_streamed(BIG_I, dev) or ic != smod.IC_STREAM:
         raise AssertionError("I = 20,000 must take the streamed strip kernel")
     n_tiles = (BIG_STRIP_S // 128) * (BIG_STRIP_S // 128 + 1) // 2
-    for n_ind, ref_tiles, ref_chunk in ((1_200, n_tiles, None),
+    ic_tried = (16, 32, 64)
+    for n_ind, ref_tiles, ref_chunk in ((200, n_tiles, None), (1_200, 8, None),
                                         (BIG_I, 2, 1_000)):
         gn, eg, maf = _tiled_panel(BIG_STRIP_S, n_ind, 7, dev)
+        # padded to the largest chunk tried: every smaller one divides it
         args, live, f0_dead = _strip_args(
             gn.cpu().numpy(), eg.cpu().numpy(), maf.cpu().numpy(), n_tiles,
-            dev, i_align=ic)
+            dev, i_align=max(ic_tried))
         del gn, eg
         kw = dict(n_ind=n_ind)
         label = (f"strip_em streamed IC={ic} tiles={n_tiles} I={n_ind} "
                  "(tiled panel)")
-        with _env(NGSLD_STRIP_STREAM="1"):   # I = 1,200 too
+        with _env(NGSLD_STRIP_STREAM="1"):   # the smaller cohorts too
             n0 = smod.LAUNCHES_STREAM
-            ms_k, kern = _time(lambda: smod.strip_em(*args, **kw), 1)
-            if smod.LAUNCHES_STREAM != n0 + 2:
+            ms_k, kern = _time(lambda: smod.strip_em(*args, **kw), 2)
+            if smod.LAUNCHES_STREAM != n0 + 3:
                 raise AssertionError("strip_em did not take the streamed "
                                      "kernel")
-            # the plain version: every tile at I = 1,200; at I = 20,000 the
-            # first ref_tiles tiles (one diagonal, one full), its sums in
-            # chunks of ref_chunk individuals to keep it to seconds
+            # the plain version on the first ref_tiles tiles (a diagonal
+            # one first); at I = 20,000 its sums in chunks of ref_chunk
+            # individuals to keep it to seconds
             sub = (*args[:10], args[10][:ref_tiles], args[11][:ref_tiles])
             ms_p, plain = _time(lambda: smod.strip_em_stream_ref(
                 *sub, i_chunk=ref_chunk, **kw), 1, False)
+            # the chunk: the same launch at three sizes (a lane adds its
+            # share of the cohort's individuals in the same order whatever
+            # the chunk)
+            ic_ms = {}
+            for c in ic_tried:
+                with _env(NGSLD_STRIP_IC=str(c)):
+                    ic_ms[c], out = _time(lambda: smod.strip_em(*args, **kw),
+                                          2)
+                _hold_between(out, kern, f"{label}: IC = {c}")
         err = _check_strip([t[:ref_tiles] for t in kern], plain,
                            live[:ref_tiles], f0_dead[:int(
                                (~live[:ref_tiles]).sum())],
                            label + f", plain on {ref_tiles} tiles")
-        with _resident_strip_forced():
-            n0 = smod.LAUNCHES
-            ms_r, res = _time(lambda: smod.strip_em(*args, **kw), 1)
-            if smod.LAUNCHES != n0 + 2:
-                raise AssertionError("the resident kernel did not run")
-        same = all(torch.equal(a.nan_to_num(), b.nan_to_num())
-                   and torch.equal(a.isnan(), b.isnan())
-                   for a, b in zip(kern, res))
-        if not same:
-            raise AssertionError(f"{label}: the streamed and the resident "
-                                 "kernel differ")
         live_d = torch.from_numpy(live).to(dev)
         b_ms, b_by, n_bytes, need = _strip_bound(args, kern[2][live_d], n_ind)
-        print(f"  {label}: streamed kernel {ms_k:.3f} ms, resident kernel "
-              f"{ms_r:.3f} ms at the same cell (outputs bit-equal on all "
-              f"{n_tiles} tiles), plain {ms_p:.3f} ms for {ref_tiles} tiles; "
-              f"{int(live.sum())} live pairs, counted evals/s "
-              f"{need / (ms_k / 1e3):.4e}; bound {b_ms:.3f} ms by {b_by} "
-              f"({n_bytes} bytes, {need} needed evals x {FLOPS_PER_EVAL} "
-              f"flops) [{card}]")
+        if smod.strip_streamed(n_ind, dev):
+            beside = ("the resident kernel does not take this cohort "
+                      f"({smod.strip_smem(n_ind)} bytes of shared memory)")
+        else:
+            n0 = smod.LAUNCHES
+            ms_r, res = _time(lambda: smod.strip_em(*args, **kw), 2)
+            if smod.LAUNCHES != n0 + 3:
+                raise AssertionError("the resident kernel did not run")
+            how = _hold_between(kern, res, f"{label}: streamed vs resident")
+            beside = (f"resident kernel {ms_r:.3f} ms at the same cell "
+                      f"(on all {n_tiles} tiles: {how})")
+        print(f"  {label}: streamed kernel {ms_k:.3f} ms, {beside}, plain "
+              f"{ms_p:.3f} ms for {ref_tiles} tiles; ms by chunk "
+              + json.dumps(ic_ms) + f"; {int(live.sum())} live pairs, "
+              f"counted evals/s {need / (ms_k / 1e3):.4e}; bound "
+              f"{b_ms:.3f} ms by {b_by} ({n_bytes} bytes, {need} needed "
+              f"evals x {FLOPS_PER_EVAL} flops) [{card}]")
+        _lane_line(label, kern[2], live_d, n_ind, 16,
+                   smod.ROUND_ITERS_STREAM)
         if n_ind == BIG_I:
+            with _env(NGSLD_STRIP_STREAM="1"):
+                _, seen = _clocks_during(lambda: _time(
+                    lambda: smod.strip_em(*args, **kw), 3, False))
+            print(f"  {label}: SM clock and power draw under three more "
+                  f"launches: {seen}")
             report["stream"] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err,
                                     bound_ms=b_ms, bound_by=b_by,
                                     plain_tiles=ref_tiles)
-        del args, kern, res, plain, live_d
-    torch.cuda.synchronize()
-    return report
+        del args, kern, plain, live_d
 
+
+def _clocks_during(fn):
+    """Run fn() while a thread reads the card's SM clock and power draw
+    every 0.2 s; returns (fn's result, the readings)."""
+    import threading
+    stop, seen = threading.Event(), []
+
+    def sample():
+        while not stop.is_set():
+            seen.append(_run(["nvidia-smi", "--query-gpu=clocks.sm,"
+                              "power.draw", "--format=csv,noheader"]))
+            stop.wait(0.2)
+
+    th = threading.Thread(target=sample)
+    th.start()
+    try:
+        return fn(), seen
+    finally:
+        stop.set()
+        th.join()
+
+
+def _same(a, b):
+    """Two strip_em outputs bit for bit (NaN equal to NaN)."""
+    import torch
+    return all(torch.equal(x.nan_to_num(), y.nan_to_num())
+               and torch.equal(x.isnan(), y.isnan()) for x, y in zip(a, b))
+
+
+def _hold_between(a, b, label):
+    """Two launches of the strip kernels on the same inputs (another
+    kernel, chunk or repack interval): r2p, nIter and n_used bit for bit, f
+    within F32_TOL (a cell that has a group of lanes adds its individuals
+    in the group's order, which follows the sub-tile's other cells). Says
+    which it was."""
+    import torch
+    if _same(a, b):
+        return "bit-equal"
+    if not _same(a[1:], b[1:]):
+        raise AssertionError(f"{label}: r2p, nIter or n_used differ")
+    if not torch.equal(a[0].isnan(), b[0].isnan()):
+        raise AssertionError(f"{label}: NaN positions of f differ")
+    err = float((a[0].nan_to_num() - b[0].nan_to_num()).abs().max())
+    if not err <= F32_TOL:
+        raise AssertionError(f"{label}: max |df| {err} > {F32_TOL}")
+    return (f"nIter, n_used, r2p bit-equal, max |df| {err:.3e} (tol "
+            f"{F32_TOL:g}; summation order differs by design)")
+
+
+# --------------------------------------------------------------- phase 3c
+
+# (source, the EM kernel's name in it): the instances built without
+# --ignore_miss_data, the ones every timed cell runs
+STRIP_KERNELS = (("strip_em", "strip_em_kernel"),
+                 ("strip_em_stream", "strip_em_stream_kernel"))
+
+
+def _sass_lines():
+    """One line a strip kernel: registers a thread and the instructions of
+    its EM inner loop by class, per unrolled trip and per term."""
+    from ngsld_tpu_torch.kernels.build import build_libraries
+    from ngsld_tpu_torch.utils.devtrace import (cuobjdump, kernel_registers,
+                                                sass_inner_loop)
+    paths = build_libraries()
+    for src, kernel in STRIP_KERNELS:
+        parts = [kernel, "ILb0E"]
+        loop = sass_inner_loop(cuobjdump(paths[src], "-sass"), parts)
+        if loop is None or loop["fp64"] < 24:
+            raise AssertionError(f"{src}: no EM inner loop found in the SASS "
+                                 f"of {kernel}: {loop}")
+        regs = kernel_registers(cuobjdump(paths[src], "-res-usage"), parts)
+        t = loop["terms"]
+        per_term = {k: round(v / t, 2) for k, v in loop.items()
+                    if isinstance(v, int) and k != "terms"}
+        print(f"  SASS {src}.cu {kernel}<false>: {regs} registers a thread; "
+              f"inner loop {loop['loop']} of {t} term(s): "
+              + json.dumps({k: v for k, v in loop.items()
+                            if k not in ("function", "loop")})
+              + "; per term: " + json.dumps(per_term))
+
+
+def _repack_cases(card):
+    """Inputs that aim at the repack, through both kernels, each against
+    the plain version with nIter and n_used exact: warps with one live
+    cell each, a single live cell, every cell stopping at a cap at and
+    around a round boundary (ROUND_ITERS +- 1) and at cap 0, with x = 0
+    cells and --ignore_miss_data."""
+    import torch
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    dev = torch.device("cuda", 0)
+    n_ind, S, n_tiles, ic = 37, 2_048, 16, 16
+    gl, eg, maf = _sim_tables(n_ind, S, 41)
+    site = np.arange(S)
+    one_a, one_b = (site == 100), (site == 777)
+    K = smod.ROUND_ITERS
+    caps = sorted({0, 1, 3, max(K - 1, 0), K, K + 1})
+    masks = (("every 32nd partner live", None, site % 32 == 5, (100,)),
+             ("one live cell", one_a, one_b, (100,)),
+             ("all cells", None, None, caps))
+    n_cases, worst = 0, 0.0
+    for name, ok_a, ok_b, cap_list in masks:
+        args, live, f0_dead = _strip_args(
+            gl, eg, maf, n_tiles, dev, i_align=ic,
+            ok_a=None if ok_a is None else ok_a.astype(np.float32),
+            ok_b=None if ok_b is None else ok_b.astype(np.float32))
+        if name == "one live cell" and int(live.sum()) != 1:
+            raise AssertionError(f"{int(live.sum())} live cells, wanted 1")
+        if name.startswith("every 32nd") and not (
+                live.reshape(n_tiles, 128, 4, 32).sum(axis=-1) <= 1).all():
+            raise AssertionError("a warp holds more than one live cell")
+        for cap in cap_list:
+            for ign in (False, True):
+                kw = dict(n_ind=n_ind, iter_cap=cap, ignore_miss=ign)
+                plain = smod.strip_em_ref(*args, **kw)
+                outs = {}
+                for kernel, env in (("resident", {}), ("streamed", dict(
+                        NGSLD_STRIP_STREAM="1", NGSLD_STRIP_IC=str(ic)))):
+                    with _env(**env):
+                        outs[kernel] = smod.strip_em(*args, **kw)
+                    worst = max(worst, _check_strip(
+                        outs[kernel], plain, live, f0_dead,
+                        f"repack case '{name}' iter_cap={cap} "
+                        f"ignore_miss={ign} {kernel}", iter_cap=cap,
+                        quiet=True))
+                    n_cases += 1
+                _hold_between(outs["resident"], outs["streamed"],
+                              f"{name}, cap {cap}: streamed vs resident")
+        del args
+    print(f"  {n_cases} repack cases (16 tiles x {n_ind}, both kernels, "
+          f"--ignore_miss_data off and on: {[m[0] for m in masks]}, caps "
+          f"{caps} around ROUND_ITERS = {K}) agree with the plain version: "
+          f"nIter and n_used exact, max|df| {worst:.3e} (tol {F32_TOL:g}); "
+          "streamed held against resident")
+
+
+def _crossover(card):
+    """Both kernels on the same 64 tiles at cohort sizes around the
+    resident kernel's limit, and the refusal past it."""
+    import torch
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    from ngsld_tpu_torch.kernels.build import smem_limits
+    dev = torch.device("cuda", 0)
+    limit = smem_limits(dev)[1]
+    rows = {}
+    for n_ind in (50, 100, 150, 200, 230, 250, 484, 1_200):
+        args, _, _ = _strip_case(n_ind, 2_048, 64, n_ind, dev,
+                                 i_align=smod.IC_STREAM)
+        kw = dict(n_ind=n_ind)
+        with _env(NGSLD_STRIP_STREAM="1"):
+            ms_s, out_s = _time(lambda: smod.strip_em(*args, **kw))
+        if smod.strip_smem(n_ind) <= limit:
+            if smod.strip_streamed(n_ind, dev):
+                raise AssertionError(f"I = {n_ind} fits and is streamed")
+            ms_r, out_r = _time(lambda: smod.strip_em(*args, **kw))
+            _hold_between(out_s, out_r, f"I = {n_ind}: streamed vs resident")
+            rows[n_ind] = dict(resident_ms=round(ms_r, 3),
+                               streamed_ms=round(ms_s, 3))
+        else:
+            # past the limit the wrapper refuses the resident kernel, with
+            # both numbers
+            try:
+                with _resident_strip_forced():
+                    smod.strip_em(*args, **kw)
+            except ValueError as e:
+                if str(smod.strip_smem(n_ind)) not in str(e) \
+                        or str(limit) not in str(e):
+                    raise AssertionError(f"refusal without the numbers: {e}")
+            else:
+                raise AssertionError(f"resident kernel not refused at I = "
+                                     f"{n_ind}")
+            if not smod.strip_streamed(n_ind, dev):
+                raise AssertionError(f"I = {n_ind} does not fit and is not "
+                                     "streamed")
+            rows[n_ind] = dict(resident_ms=None, streamed_ms=round(ms_s, 3))
+        del args
+    print("  crossover, 64 tiles of 2,048 sites, ms (resident None: refused, "
+          f"its block needs more than {limit} bytes): " + json.dumps(rows)
+          + f" [{card}]")
+
+
+def phase_strip_design(card):
+    _sass_lines()
+    _repack_cases(card)
+    _crossover(card)
 
 # ---------------------------------------------------------------- phase 4
 
@@ -1110,19 +1409,36 @@ def phase_idle(tmp, card, real):
     return dict(wall=wall, busy=busy)
 
 
-def main() -> int:
+def main(argv=()) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
     results = []
+    if "--strip-only" in argv:
+        # a short look at the two strip kernels: build, their cells of
+        # phases 3 and 3b, phase 3c; prints neither the kernels line nor
+        # the ok line
+        card = _phase(results, "1 environment", phase_env)
+        _phase(results, "2 build", phase_build)
+        _phase(results, "3 strip kernels vs plain",
+               lambda: phase_kernel(card, strip_only=True))
+        _phase(results, "3b streamed strip kernel vs plain",
+               lambda: phase_kernel_large(card, strip_only=True))
+        _phase(results, "3c strip kernels' design",
+               lambda: phase_strip_design(card))
+        print("chip_smoke --strip-only: "
+              + ("PASS" if all(results) else "FAILED"))
+        return 0 if all(results) else 1
     with tempfile.TemporaryDirectory(prefix="ngsld_chip_smoke_") as tmp:
         card = _phase(results, "1 environment", phase_env)
         _phase(results, "2 build", phase_build)
         rep = _phase(results, "3 kernel vs plain", lambda: phase_kernel(card))
         big = _phase(results, "3b large-cohort kernels vs plain",
                      lambda: phase_kernel_large(card))
+        _phase(results, "3c strip kernels' design",
+               lambda: phase_strip_design(card))
         _phase(results, "4 slice vs strict", lambda: phase_slice(tmp))
         real = _phase(results, "5 real size", lambda: phase_real(tmp, card))
         large = _phase(results, "5b large cohort through the CLI",
@@ -1161,4 +1477,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
 """Build the CUDA kernels of csrc/ into shared libraries, at first use.
 
 nvcc compiles each of the repository's .cu sources (with the .cuh headers
-beside them, and nothing else) into its own shared library with a plain C interface, loaded with ctypes.
+beside them, and nothing else) into its own shared library with a plain C
+interface, loaded with ctypes.
 All missing libraries build at once, one nvcc process per source, started
 together. The outputs go to ngsld_tpu_torch/.build/, keyed by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged
@@ -32,7 +33,7 @@ _LIBS: dict = {}
 
 _vp, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # source name -> {entry point: argtypes}; every entry point returns the
-# cudaError of its launch as an int (ngsld_strip_em_stream_smem: bytes)
+# cudaError of its launch as an int (the *_smem entry points: bytes)
 ENTRY_POINTS = {
     "pair_em": {
         name: [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp]
@@ -45,10 +46,11 @@ ENTRY_POINTS = {
         name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp]
         for name in ("ngsld_pair_em_ichunk_f32", "ngsld_pair_em_ichunk_f64")},
     "strip_em": {
-        "ngsld_strip_em": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 6
-        + [_vp] * 5},
+        "ngsld_strip_em": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 7
+        + [_vp] * 5,
+        "ngsld_strip_em_smem": [_i32]},
     "strip_em_stream": {
-        "ngsld_strip_em_stream": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 7
+        "ngsld_strip_em_stream": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 8
         + [_vp] * 5,
         "ngsld_strip_em_stream_smem": [_i32]},
 }

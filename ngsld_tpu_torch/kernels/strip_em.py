@@ -5,16 +5,19 @@ A tile is a rectangle of pairs, anchors [ta*TA, (ta+1)*TA) x partners
 [tb*TB, (tb+1)*TB), computed from contiguous slices of the strip tables
 (no gathers). strip_em runs a list of tiles. On CUDA tensors it launches
 a kernel or raises: csrc/strip_em.cu (the port of
-pallas_strip._strip_kernel; a block's strips stay in L1), or, when
-strip_streamed(n_ind) says the strips no longer fit,
+pallas_strip._strip_kernel; a block's strips stay in shared memory, as
+doubles, for the whole run), or, when strip_streamed(n_ind) says so,
 csrc/strip_em_stream.cu (the port of pallas_strip._strip_ichunk_kernel;
 the individual axis streams through shared memory in chunks, and the
 tables must be padded to the chunk: strip_tables(i_align=
-strip_i_align(n_ind))). On CPU tensors it runs the matching plain PyTorch
-version, strip_em_ref or strip_em_stream_ref. LAUNCHES and LAUNCHES_STREAM
-count the two kernels' launches, nothing else. NGSLD_STRIP_STREAM=1
-forces the streamed kernel at any cohort size and NGSLD_STRIP_IC sets its
-chunk (the reference package's test knobs).
+strip_i_align(n_ind))). Both kernels share their block body
+(csrc/strip_core.cuh): every ROUND_ITERS (ROUND_ITERS_STREAM) iterations
+a block seats the cells still running over all its lanes again. On CPU
+tensors strip_em runs the matching plain PyTorch version, strip_em_ref or
+strip_em_stream_ref. LAUNCHES and LAUNCHES_STREAM count the two kernels'
+launches, nothing else. NGSLD_STRIP_STREAM=1 forces the streamed kernel at
+any cohort size and NGSLD_STRIP_IC sets its chunk (the reference package's
+test knobs).
 
 Per cell (a, b): live iff lo[a] <= b < hi[a] and both sites ok. Live
 cells run the two-locus EM of ops/em.py to their own convergence; dead
@@ -27,9 +30,9 @@ f64 reference wherever eps lands within f32 rounding of EPSILON.
 
 from __future__ import annotations
 
-import torch
-
 import os
+
+import torch
 
 from ..constants import EPSILON, ITER_MAX
 from ..plan.strips import TA, TB
@@ -38,13 +41,15 @@ from .build import smem_limits
 LAUNCHES = 0          # csrc/strip_em.cu
 LAUNCHES_STREAM = 0   # csrc/strip_em_stream.cu
 
-# individuals per staged chunk of the streamed kernel: two buffers of
-# 4 planes x (8 anchors + 32 partners) x 32 x 4 bytes = 40 KB of shared
-# memory a block, five blocks an SM
-IC_STREAM = 32
-# bytes of GLs one block of the resident kernel re-reads every iteration,
-# per individual: 3 planes x (8 anchors + 32 partners) x 4
-_RESIDENT_BYTES_PER_IND = 480
+# individuals per staged chunk of the streamed kernel
+IC_STREAM = 64
+# iterations between two repacks of a block's running cells over its
+# lanes: the resident kernel, and the streamed one (whose iterations are
+# long against a repack)
+ROUND_ITERS = 2
+ROUND_ITERS_STREAM = 1
+# anchors of a block's sub-tile (x 32 partners): resident, streamed
+_ROWS, _ROWS_STREAM = 8, 16
 
 # plain version: tiles per batch are bounded so that one f64
 # (tiles, TA, I, TB) plane stays under this many bytes
@@ -80,16 +85,29 @@ def _ic_stream() -> int:
     return int(os.environ.get("NGSLD_STRIP_IC", IC_STREAM))
 
 
+def strip_smem(n_ind: int, streamed: bool = False) -> int:
+    """Bytes of shared memory a block of the resident kernel needs for a
+    cohort of n_ind, or of the streamed kernel for a chunk of n_ind
+    (csrc/strip_core.cuh::strip_smem_bytes): an individual's record of
+    3 planes x (rows + 32) + 1 doubles (streamed: two buffers of a chunk
+    and the next chunk's floats), and per cell four frequencies, n_used
+    and a list entry, plus two counts (streamed: and a mask) a warp."""
+    rows = _ROWS_STREAM if streamed else _ROWS
+    rec = (3 * (rows + 32) + 1) * 8
+    per_ind = 2 * rec + 3 * (rows + 32) * 4 if streamed else rec
+    return (per_ind * n_ind + rows * 32 * (32 + 4 + 2)
+            + (3 if streamed else 2) * rows * 4)
+
+
 def strip_streamed(n_ind: int, device="cpu") -> bool:
-    """Whether strip_em takes the streamed kernel for this cohort: when the
-    strips a block of the resident kernel re-reads every iteration (480
-    bytes an individual) no longer fit the shared memory/L1 of one SM (the
-    opt-in limit: beyond 484 individuals on an H100; the CPU path assumes
-    that card). The kernel's design limit, not a measured crossover.
-    NGSLD_STRIP_STREAM=1 forces it at any cohort size."""
+    """Whether strip_em takes the streamed kernel for this cohort: when a
+    block's strips for the whole cohort (strip_smem) no longer fit the
+    shared memory a block may opt into (beyond 230 individuals on an H100;
+    the CPU path assumes that card). NGSLD_STRIP_STREAM=1 forces it at any
+    cohort size."""
     if os.environ.get("NGSLD_STRIP_STREAM") == "1":
         return True
-    return _RESIDENT_BYTES_PER_IND * n_ind > smem_limits(device)[1]
+    return strip_smem(n_ind) > smem_limits(device)[1]
 
 
 def strip_i_align(n_ind: int, device="cpu") -> int:
@@ -275,7 +293,9 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
 
     Cohorts past the resident kernel's limit (strip_streamed) take the
     streamed kernel; their tables must be built with
-    strip_tables(..., i_align=strip_i_align(n_ind)), else ValueError."""
+    strip_tables(..., i_align=strip_i_align(n_ind)), else ValueError. A
+    kernel whose block needs more shared memory than the device allows is
+    refused with a ValueError that names both numbers."""
     global LAUNCHES, LAUNCHES_STREAM
     _check(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, n_ind,
            ta_sz, tb_sz)
@@ -291,19 +311,31 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
                 f"streamed strip kernel needs Ip % {ic} == 0; build tables "
                 "with strip_tables(..., i_align=strip_i_align(n_ind)) (got "
                 f"Ip={ga.shape[2]})")
+        if ta_sz % _ROWS_STREAM:
+            raise ValueError("streamed strip kernel needs a tile height "
+                             f"that is a multiple of {_ROWS_STREAM}, got "
+                             f"{ta_sz}")
+    # a block's shared memory against what the device allows (for CPU
+    # tensors: what the card the routing assumes would allow)
+    need = strip_smem(ic if streamed else n_ind, streamed)
+    limit = smem_limits(ga.device)[1]
+    if need > limit:
+        raise ValueError(
+            (f"streamed strip kernel: chunk {ic}" if streamed else
+             f"resident strip kernel: {n_ind} individuals")
+            + f" needs {need} bytes of shared memory, the device allows "
+            f"{limit}")
     if ga.device.type == "cpu":
         ref = strip_em_stream_ref if streamed else strip_em_ref
         return ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
                    **kw)
     from .build import get_library
     lib = get_library("strip_em_stream" if streamed else "strip_em")
-    if streamed:
-        need, limit = lib.ngsld_strip_em_stream_smem(ic), \
-            smem_limits(ga.device)[1]
-        if need > limit:
-            raise ValueError(
-                f"streamed strip kernel: chunk {ic} needs {need} bytes of "
-                f"shared memory, the device allows {limit}")
+    built = (lib.ngsld_strip_em_stream_smem(ic) if streamed
+             else lib.ngsld_strip_em_smem(n_ind))
+    if built != need:
+        raise RuntimeError(f"strip_smem says {need} bytes of shared memory, "
+                           f"the built kernel {built}")
     tens = [t.contiguous() for t in (ga, gb, ea, eb, maf_a, maf_b, lo, hi,
                                      ok_a, ok_b, ta, tb)]
     n, dev = ta.shape[0], ga.device
@@ -314,7 +346,8 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
     if n == 0:
         return f, r2p, n_iter, n_used
     shape = (n, ga.shape[1], gb.shape[2], ga.shape[2], n_ind)
-    tail = (ta_sz, tb_sz, iter_cap, int(bool(ignore_miss)), f.data_ptr(),
+    tail = (ta_sz, tb_sz, iter_cap, int(bool(ignore_miss)),
+            ROUND_ITERS_STREAM if streamed else ROUND_ITERS, f.data_ptr(),
             r2p.data_ptr(), n_iter.data_ptr(), n_used.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -102,6 +102,30 @@ def test_library_path_keys_on_sources_and_flags(monkeypatch):
     assert "--use_fast_math" not in build.NVCC_FLAGS
 
 
+def test_library_path_covers_the_headers(monkeypatch, tmp_path):
+    """Every library's key hashes the .cuh headers beside the sources (the
+    EM arithmetic and the strip kernels' block body), so an edited header
+    rebuilds; the package data ships them."""
+    import shutil
+    assert sorted(os.path.basename(p) for p in
+                  build.glob.glob(os.path.join(build.CSRC, "*.cuh"))) \
+        == ["em_core.cuh", "strip_core.cuh"]
+    for src in ("strip_em.cu", "strip_em_stream.cu"):
+        with open(os.path.join(build.CSRC, src)) as fh:
+            assert '#include "strip_core.cuh"' in fh.read()
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    monkeypatch.setattr(build, "CSRC", str(copy))
+    before = {n: build.library_path(n) for n in build.sources()}
+    assert before == {n: build.library_path(n) for n in build.sources()}
+    with open(copy / "strip_core.cuh", "a") as fh:
+        fh.write("// edited\n")
+    after = {n: build.library_path(n) for n in build.sources()}
+    assert all(after[n] != before[n] for n in before)
+    with open(os.path.join(REPO, "pyproject.toml")) as fh:
+        assert '"csrc/*.cuh"' in fh.read()
+
+
 def test_chip_smoke_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: chip_smoke.py would run")

@@ -256,14 +256,15 @@ def test_streamed_rule_and_alignment_match_jax(monkeypatch):
     cohorts; past either package's resident limit both stream. (The chunk
     defaults differ on purpose: the TPU's lane width, the card's shared
     memory.)"""
-    for n in (9, 40, 100, 400):
+    for n in (9, 40, 100, 200):
         assert not tstrip.strip_streamed(n) and not jstrip.strip_streamed(n)
         assert tstrip.strip_i_align(n) == jstrip.strip_i_align(n) == 8
-    # 480 bytes an individual against the opt-in shared memory of one SM
-    assert not tstrip.strip_streamed(484) and tstrip.strip_streamed(485)
+    # a block's strips as doubles, 968 bytes an individual, against the
+    # shared memory a block may opt into
+    assert not tstrip.strip_streamed(230) and tstrip.strip_streamed(231)
     for n in (4000, 20000):
         assert tstrip.strip_streamed(n) and jstrip.strip_streamed(n)
-        assert tstrip.strip_i_align(n) == tstrip.IC_STREAM == 32
+        assert tstrip.strip_i_align(n) == tstrip.IC_STREAM == 64
     monkeypatch.setenv("NGSLD_STRIP_STREAM", "1")
     monkeypatch.setenv("NGSLD_STRIP_IC", "16")
     assert tstrip.strip_streamed(9) and jstrip.strip_streamed(9)
