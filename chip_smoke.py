@@ -6,6 +6,9 @@
                                          # kernels: phases 1, 2, 3c and the
                                          # strip cells of 3 and 3b; prints
                                          # neither the kernels line nor ok
+    python3 chip_smoke.py --gather-only  # the same for the gather kernels:
+                                         # phases 1, 2, 3d and the gather
+                                         # cells of 3 and 3b
 
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
@@ -23,16 +26,18 @@ Phases, each printing its result and seconds on its own line:
      on this card, and the strip kernel's lane efficiency read from its
      own nIter
   3b. the large-cohort kernels against their plain versions: pair_em_rows,
-     pair_em_ichunk and the streamed strip_em at I = 37 and 1,200 (chunks
-     with a partial last one, dead cells, x = 0 pairs, --ignore_miss_data
-     off and on), then at the large-cohort cells, a 512-individual
-     simulated panel tiled to the cohort size: pair_em_rows at 2,048 pairs
-     x 4,000, pair_em_ichunk at 2,048 pairs x 20,000, the streamed strip_em
-     on the 36 all-pairs tiles of 1,024 sites x 20,000 (against the plain
-     version on 2 tiles there, on 8 at I = 1,200 and on all 36 at I = 200,
-     where it is also held against the resident kernel on all 36), each
-     at three chunk sizes. Beside each gather kernel's time, the older
-     kernel's time at the same cell
+     pair_em_ichunk (its cluster body, and its streamed body forced) and
+     the streamed strip_em at I = 37 and 1,200 (chunks with a partial last
+     one, dead cells, x = 0 pairs, --ignore_miss_data off and on), then at
+     the large-cohort cells, a 512-individual simulated panel tiled to the
+     cohort size: pair_em_rows at 2,048 pairs x 4,000, pair_em_ichunk at
+     2,048 pairs x 20,000 (the cluster body), the streamed strip_em on the
+     36 all-pairs tiles of 1,024 sites x 20,000 (against the plain version
+     on 2 tiles there, on 8 at I = 1,200 and on all 36 at I = 200, where it
+     is also held against the resident kernel on all 36), each at three
+     chunk sizes. Beside each gather kernel's time, the other kernels'
+     times at the same cell (at 20,000: the streamed body, the kernel the
+     cluster body replaced)
   3c. the strip kernels' design: the instructions of each kernel's EM
      inner loop by class and its registers (cuobjdump of the built
      libraries); inputs that aim at the repack through both kernels
@@ -41,6 +46,20 @@ Phases, each printing its result and seconds on its own line:
      both kernels on the same 64 tiles at cohort sizes up to and past the
      resident kernel's shared-memory limit, where the wrapper must refuse
      it
+  3d. the gather kernels' design: the SASS of the lane-group kernel
+     (rows staged as floats and as doubles), the cluster body and the
+     streamed body; pair_em_gather at the gather cell for G = 4, 8, 16, 32
+     lanes a pair and both slot types, with the lane-use model of each
+     layout read from the kernel's own n_iter; the cluster body at 2,048 x
+     20,000 for several cluster sizes and block widths, and at I = 256 for
+     the cost of a cluster iteration; two launches held bit-equal; edge
+     cases through both kernels against their plain versions (one pair,
+     part-filled blocks, I = 1, 37, 100, both sides of every change of the
+     group size, the gather rung's design limit and its refusal one past
+     it, cluster sizes 1, 2, 8 and one past the cluster's capacity through
+     the streamed body, x = 0 pairs, --ignore_miss_data, f64 tables); the
+     ladder's crossovers, gather against rows and rows against the cluster
+     body, at 16,384 and 524,288 pairs
   4. the slice vs the strict oracle: the port's CLI on the card against
      --engine strict, 24 x 2,000 fixture, four flag variants, each
      through the gather sweep and through the strip sweep; the gz-text
@@ -194,11 +213,11 @@ def _table(n_ind, n_sites, n_pairs, seed, dtype, device):
     return gn_d, sidx, maf_d
 
 
-def _check(kern, plain, tol, label):
+def _check(kern, plain, tol, label, quiet=False):
     """Kernel vs plain twin. Both run the EM in f64 (the twin upcasts), so
     they agree to the rounding of f's dtype: f within `tol` (NaN where
     both are NaN), n_used and nIter exact on every pair, and x = 0 pairs
-    frozen at nIter 0 with NaN f in both."""
+    frozen at nIter 0 with NaN f in both. Prints one line unless quiet."""
     fk, itk, nuk = (t.cpu().numpy() for t in kern)
     fp, itp, nup = (t.cpu().numpy() for t in plain)
     if not np.array_equal(nuk, nup):
@@ -221,8 +240,11 @@ def _check(kern, plain, tol, label):
             if not (np.isnan(f[x0]).all() and (it[x0] == 0).all()):
                 raise AssertionError(f"{label}: x = 0 pairs not frozen at "
                                      f"nIter 0 with NaN f ({name})")
-    print(f"  {label}: max|df| {err:.3e} (tol {tol:g}), nIter and n_used "
-          f"exact, x=0 pairs {int(x0.sum())}")
+    if not quiet:
+        bits = "equal" if np.array_equal(np.where(nan_k, 0, fk),
+                                         np.where(nan_p, 0, fp)) else "differ"
+        print(f"  {label}: max|df| {err:.3e} (tol {tol:g}), f bits {bits}, "
+              f"nIter and n_used exact, x=0 pairs {int(x0.sum())}")
     return err, int(x0.sum())
 
 
@@ -374,11 +396,12 @@ def _check_strip(kern, plain, live, f0_dead, label, iter_cap=100,
     return f_err
 
 
-def phase_kernel(card, strip_only=False):
+def phase_kernel(card, gather=True, strip=True):
     report = {}
-    if not strip_only:
+    if gather:
         _gather_cells(card, report)
-    _strip_cells(card, report)
+    if strip:
+        _strip_cells(card, report)
     return report
 
 
@@ -581,7 +604,7 @@ def _resident_strip_forced():
     return _attr(smod, "strip_streamed", lambda *a, **k: False)
 
 
-def phase_kernel_large(card, strip_only=False):
+def phase_kernel_large(card, gather=True, strip=True):
     import torch
     from ngsld_tpu_torch.kernels import pair_em as pmod
     from ngsld_tpu_torch.kernels import strip_em as smod
@@ -594,9 +617,10 @@ def phase_kernel_large(card, strip_only=False):
           f"-> {pmod.pick_gather_kernel(BIG_I, 4, dev)}; strip streamed at "
           f"I = 100: {smod.strip_streamed(100, dev)}, at {BIG_I}: "
           f"{smod.strip_streamed(BIG_I, dev)}")
-    if not strip_only:
+    if gather:
         _gather_cells_large(card, report)
-    _strip_cells_large(card, report)
+    if strip:
+        _strip_cells_large(card, report)
     torch.cuda.synchronize()
     return report
 
@@ -606,6 +630,7 @@ def _gather_cells_large(card, report):
     from ngsld_tpu_torch.kernels import pair_em as pmod
     dev = torch.device("cuda", 0)
     # ---- small odd sizes: warp and chunk boundaries, a partial last chunk
+    # (the streamed body of pair_em_ichunk, forced), the cluster body
     for n_ind, n_pairs, chunks in ((37, 65_536, (16, pmod.I_CHUNK)),
                                    (1_200, 16_384, (500, pmod.I_CHUNK))):
         gn, sidx, maf = _table(n_ind, 4_000, n_pairs, n_ind, torch.float32,
@@ -618,10 +643,14 @@ def _gather_cells_large(card, report):
             for ic in chunks:
                 if n_ind % ic == 0:
                     raise AssertionError("the last chunk must be partial")
-                _check(pmod.pair_em_ichunk(gn, sidx, maf, ign, i_chunk=ic),
+                _check(_ichunk_streamed(gn, sidx, maf, ign, i_chunk=ic),
                        pmod.pair_em_ichunk_ref(gn, sidx, maf, ign,
                                                i_chunk=ic),
-                       F32_TOL, f"pair_em_ichunk i_chunk={ic} {tag}")
+                       F32_TOL, f"pair_em_ichunk streamed i_chunk={ic} {tag}")
+            _check(_ichunk_cluster(gn, sidx, maf, ign),
+                   pmod.pair_em_ichunk_ref(gn, sidx, maf, ign), F32_TOL,
+                   f"pair_em_ichunk cluster C="
+                   f"{pmod.ichunk_cluster(n_ind, 4, dev)} {tag}")
             if ign and n_x0 == 0:
                 raise AssertionError(f"{tag}: no x = 0 pairs in the case")
         if n_ind == 37:   # double tables
@@ -629,12 +658,38 @@ def _gather_cells_large(card, report):
             _check(pmod.pair_em_rows(g64, sidx, m64, True),
                    pmod.pair_em_rows_ref(g64, sidx, m64, True), F64_TOL,
                    f"pair_em_rows f64 P={n_pairs} I={n_ind}")
-            _check(pmod.pair_em_ichunk(g64, sidx, m64, True, i_chunk=16),
+            _check(_ichunk_streamed(g64, sidx, m64, True, i_chunk=16),
                    pmod.pair_em_ichunk_ref(g64, sidx, m64, True, i_chunk=16),
-                   F64_TOL, f"pair_em_ichunk f64 P={n_pairs} I={n_ind}")
+                   F64_TOL, f"pair_em_ichunk streamed f64 P={n_pairs} "
+                   f"I={n_ind}")
+            _check(_ichunk_cluster(g64, sidx, m64, True),
+                   pmod.pair_em_ichunk_ref(g64, sidx, m64, True), F64_TOL,
+                   f"pair_em_ichunk cluster f64 P={n_pairs} I={n_ind}")
             del g64, m64
     del gn, sidx, maf
     _gather_cells_big(card, report)
+
+
+def _ichunk_streamed(*args, **kw):
+    """pair_em_ichunk's streamed body at any cohort size (pair_em_ichunk
+    takes it past the cluster's capacity only), shown by the body's own
+    launch counter."""
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    n0, s0 = pmod.LAUNCHES_ICHUNK, pmod.LAUNCHES_ICHUNK_STREAM
+    out = pmod._pair_em_ichunk_stream(*args, **kw)
+    if (pmod.LAUNCHES_ICHUNK, pmod.LAUNCHES_ICHUNK_STREAM) != (n0 + 1, s0 + 1):
+        raise AssertionError("pair_em_ichunk did not take its streamed body")
+    return out
+
+
+def _ichunk_cluster(*args, **kw):
+    """pair_em_ichunk through its cluster body, shown by the counters."""
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    n0, s0 = pmod.LAUNCHES_ICHUNK, pmod.LAUNCHES_ICHUNK_STREAM
+    out = pmod.pair_em_ichunk(*args, **kw)
+    if (pmod.LAUNCHES_ICHUNK, pmod.LAUNCHES_ICHUNK_STREAM) != (n0 + 1, s0):
+        raise AssertionError("pair_em_ichunk did not take its cluster body")
+    return out
 
 
 def _strip_cells_large(card, report):
@@ -673,20 +728,27 @@ def _gather_cells_big(card, report):
         rung = pmod.pick_gather_kernel(n_ind, 4, dev)
         if rung != name:
             raise AssertionError(f"ladder gives {rung} at I = {n_ind}")
-        kern_fn = pmod.GATHER_KERNELS[name]
+        kern_fn = (pmod.pair_em_rows if name == "rows" else _ichunk_cluster)
         plain_fn = (pmod.pair_em_rows_ref if name == "rows"
                     else pmod.pair_em_ichunk_ref)
         label = f"pair_em_{name} f32 P={BIG_P} I={n_ind} (tiled panel)"
+        if name == "ichunk":
+            label += f", cluster C={pmod.ichunk_cluster(n_ind, 4, dev)}"
         ms_k, kern = _time(lambda: kern_fn(gn, sidx, maf, False))
         ms_p, plain = _time(lambda: plain_fn(gn, sidx, maf, False), 1, False)
         err, _ = _check(kern, plain, F32_TOL, label)
         _check(kern_fn(gn, sidx, maf, True), plain_fn(gn, sidx, maf, True),
                F32_TOL, label + " ignore_miss=True")
-        others = {"pair_em_gather": _time(
-            lambda: pmod.pair_em_gather(gn, sidx, maf, False))}
         if name == "rows":
-            others["pair_em_ichunk"] = _time(
-                lambda: pmod.pair_em_ichunk(gn, sidx, maf, False))
+            others = {
+                "pair_em_gather": _time(
+                    lambda: pmod.pair_em_gather(gn, sidx, maf, False)),
+                "pair_em_ichunk": _time(
+                    lambda: _ichunk_cluster(gn, sidx, maf, False))}
+        else:
+            # the kernel the cluster body replaced, at the same cell
+            others = {"pair_em_ichunk streamed": _time(
+                lambda: _ichunk_streamed(gn, sidx, maf, False))}
         for o_name, (_, o_out) in others.items():
             _check(o_out, kern, F32_TOL, f"{o_name} vs pair_em_{name}, same "
                    "cell")
@@ -694,6 +756,8 @@ def _gather_cells_big(card, report):
         mean_it = float(kern[1].float().mean()) + 1
         report[name] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err,
                             bound_ms=b_ms, bound_by=b_by)
+        if name == "ichunk":
+            report[name]["before_ms"] = others["pair_em_ichunk streamed"][0]
         print(f"  {label}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
               + ", ".join(f"{k} {v[0]:.3f} ms" for k, v in others.items())
               + f" at the same cell; mean nIter {mean_it:.2f}, counted "
@@ -841,15 +905,19 @@ STRIP_KERNELS = (("strip_em", "strip_em_kernel"),
                  ("strip_em_stream", "strip_em_stream_kernel"))
 
 
-def _sass_lines():
-    """One line a strip kernel: registers a thread and the instructions of
-    its EM inner loop by class, per unrolled trip and per term."""
+def _sass_lines(kernels=None):
+    """One line a kernel: registers a thread and the instructions of its EM
+    inner loop by class, per unrolled trip and per term. kernels: (source,
+    kernel name, further parts of the mangled name) triples, the strip
+    kernels by default."""
     from ngsld_tpu_torch.kernels.build import build_libraries
     from ngsld_tpu_torch.utils.devtrace import (cuobjdump, kernel_registers,
                                                 sass_inner_loop)
     paths = build_libraries()
-    for src, kernel in STRIP_KERNELS:
-        parts = [kernel, "ILb0E"]
+    out = {}
+    for src, kernel, *more in kernels or [(s, k, "ILb0E")
+                                          for s, k in STRIP_KERNELS]:
+        parts = [kernel, *more]
         loop = sass_inner_loop(cuobjdump(paths[src], "-sass"), parts)
         if loop is None or loop["fp64"] < 24:
             raise AssertionError(f"{src}: no EM inner loop found in the SASS "
@@ -858,11 +926,13 @@ def _sass_lines():
         t = loop["terms"]
         per_term = {k: round(v / t, 2) for k, v in loop.items()
                     if isinstance(v, int) and k != "terms"}
-        print(f"  SASS {src}.cu {kernel}<false>: {regs} registers a thread; "
-              f"inner loop {loop['loop']} of {t} term(s): "
+        print(f"  SASS {src}.cu {loop['function']}: {regs} registers a "
+              f"thread; inner loop {loop['loop']} of {t} term(s): "
               + json.dumps({k: v for k, v in loop.items()
                             if k not in ("function", "loop")})
               + "; per term: " + json.dumps(per_term))
+        out[kernel + "".join(more)] = dict(regs=regs, per_term=per_term)
+    return out
 
 
 def _repack_cases(card):
@@ -968,6 +1038,302 @@ def phase_strip_design(card):
     _sass_lines()
     _repack_cases(card)
     _crossover(card)
+
+# --------------------------------------------------------------- phase 3d
+
+# (source, kernel, a part of its mangled name): the f32-table instances
+# built without --ignore_miss_data, the ones the timed cells run
+GATHER_KERNELS_SASS = (("pair_em", "pair_em_kernel", "IfLb0E"),
+                       ("pair_em_ichunk", "pair_em_cluster_kernel", "IfLb0E"),
+                       ("pair_em_ichunk", "pair_em_ichunk_kernel", "IfLb0E"))
+GROUPS = (4, 8, 16, 32)          # lane groups timed at the gather cell
+X_GATHER_ROWS = (100, 400, 600, 700, 800, 1_200, 2_048, 4_000)   # crossovers
+# f64 tables: the lane groups' slots fit to 2,421 individuals
+X_GATHER_ROWS_F64 = (100, 200, 300, 400, 500, 600, 700, 800, 1_200, 2_048)
+X_ROWS_ICHUNK = (4_000, 8_000, 9_642, 12_000)
+# pairs of the crossover cells: a sampled large-cohort block and the
+# gather sweep's default block (--chunk_pairs)
+X_P = (16_384, MAIN_P)
+
+
+def _gather_groups_resident(n_ind, group, regs):
+    """Lane groups of pair_em_gather the card holds at once (f32 tables):
+    blocks an SM from its shared memory, its registers and the 32-block
+    limit, times the SMs, times the groups a block."""
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    smem = pmod.gather_smem(n_ind, group)
+    sm_bytes = pmod.smem_limits(dev)[1] + 1024
+    per_sm = min(32, sm_bytes // (smem + 1024),
+                 65_536 // (max(regs or 1, 1) * pmod.GATHER_THREADS))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return per_sm * sms * (pmod.GATHER_THREADS // group), per_sm
+
+
+def _group_sweep(card, sass):
+    """pair_em_gather at the gather cell for G = 4, 8, 16, 32 lanes a pair:
+    times, resident warps, the lane-use model of each layout from the
+    kernel's own n_iter, each run held against the rule's launch."""
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    from ngsld_tpu_torch.utils.devtrace import gather_lane_use
+    dev = torch.device("cuda", 0)
+    gn, sidx, maf = _table(MAIN_I, 20_000, MAIN_P, 5, torch.float32, dev)
+    rule = pmod.gather_group(MAIN_I, 4, dev)
+    base = pmod.pair_em_gather(gn, sidx, maf, False)
+    if not _same(base, pmod.pair_em_gather(gn, sidx, maf, False)):
+        raise AssertionError("pair_em_gather: two launches on the same "
+                             "inputs differ")
+    n_iter = base[1].cpu().numpy()
+    regs = sass["pair_em_kernelIfLb0E"]["regs"]
+    rows = {}
+    for g in GROUPS:
+        with _attr(pmod, "gather_group", lambda *a, g=g, **k: g):
+            ms, out = _time(lambda: pmod.pair_em_gather(gn, sidx, maf,
+                                                        False))
+        err, _ = _check(out, base, F32_TOL, f"G = {g}", quiet=True)
+        n_groups, per_sm = _gather_groups_resident(MAIN_I, g, regs)
+        use = gather_lane_use(n_iter, MAIN_I, g, n_groups)["queue"]
+        rows[f"G={g}"] = dict(ms=round(ms, 3), warps_sm=per_sm * 2,
+                              lane_use=round(use, 4),
+                              bits="equal" if _same(out, base)
+                              else f"max|df| {err:.3e}")
+    old = gather_lane_use(n_iter, MAIN_I, 32, 1)["warp"]
+    print(f"  pair_em_gather f32 P={MAIN_P} I={MAIN_I}: by lane group (ms; "
+          "resident warps an SM; modelled lane use of the queue from the "
+          "kernel's n_iter; against the rule's launch, nIter and n_used "
+          f"exact): " + json.dumps(rows) + f"; the rule takes G={rule}; two "
+          "launches bit-equal; the warp-per-pair layout's lane use (4-warp "
+          f"blocks) {old:.4f} [{card}]")
+    del gn, sidx, maf, base
+
+
+def _cluster_sweep(card):
+    """pair_em_ichunk's cluster body at 2,048 x 20,000 for several cluster
+    sizes and block widths, each held against the rule's launch; two
+    launches bit-equal; at I = 256, where the arithmetic is trivial, the
+    cost of a cluster's update."""
+    import ctypes
+
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    from ngsld_tpu_torch.kernels.build import get_library
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(5)
+    pairs = np.stack([rng.integers(0, 4_096, BIG_P),
+                      rng.integers(0, 4_096, BIG_P)]).astype(np.int32)
+    sidx = torch.from_numpy(pairs).to(dev)
+    lib = get_library("pair_em_ichunk")
+
+    def active(n_ind, c, t):
+        out = (ctypes.c_int * 1)()
+        lib.ngsld_pair_em_cluster_occupancy(0, n_ind, c, t, 0,
+                                            ctypes.addressof(out))
+        return int(out[0])
+
+    for n_ind, sizes, widths in ((BIG_I, (3, 4, 5, 6, 8), (128, 256, 512)),
+                                 (256, (1, 2, 4, 8), (64,))):
+        gn, _, maf = _tiled_panel(4_096, n_ind, 3, dev)
+        c_rule = pmod.ichunk_cluster(n_ind, 4, dev)
+        rule = (c_rule, pmod.cluster_threads(n_ind, c_rule))
+        base = _ichunk_cluster(gn, sidx, maf, False)
+        if not _same(base, _ichunk_cluster(gn, sidx, maf,
+                                                         False)):
+            raise AssertionError(f"pair_em_ichunk I={n_ind}: two launches "
+                                 "differ")
+        updates = int(np.minimum(base[1].cpu().numpy() + 1, 100).sum())
+        rows = {}
+        for c in sizes:
+            for t in widths:
+                with _attr(pmod, "ichunk_cluster", lambda *a, c=c, **k: c), \
+                        _attr(pmod, "cluster_threads",
+                              lambda *a, t=t, **k: t):
+                    ms, out = _time(lambda: _ichunk_cluster(gn, sidx, maf,
+                                                            False))
+                err, _ = _check(out, base, F32_TOL, f"C={c}", quiet=True)
+                n_act = active(n_ind, c, t)
+                rows[f"C={c}, {t} threads"] = dict(
+                    ms=round(ms, 3), clusters_resident=n_act,
+                    us_per_cluster_update=round(ms * 1e3 * n_act / updates,
+                                                3),
+                    smem_block=pmod.cluster_smem(n_ind, c),
+                    bits="equal" if _same(out, base)
+                    else f"max|df| {err:.3e}")
+        print(f"  pair_em_ichunk cluster body, P={BIG_P} I={n_ind} (tiled "
+              f"panel, {updates} pair updates): " + json.dumps(rows)
+              + f"; the rule takes C={rule[0]}, {rule[1]} threads; two "
+              f"launches bit-equal [{card}]")
+        del gn, maf, base
+    del sidx
+
+
+def _gather_case(n_ind, n_pairs, seed, dtype, device):
+    """A tiled-panel site table (2% all-missing sites, so x = 0 pairs under
+    --ignore_miss_data) of 256 sites and n_pairs random pairs."""
+    import torch
+    gn, _, maf = _tiled_panel(256, n_ind, seed, device)
+    rng = np.random.default_rng(seed)
+    sidx = torch.from_numpy(np.stack([rng.integers(0, 256, n_pairs),
+                                      rng.integers(0, 256, n_pairs)])
+                            .astype(np.int32)).to(device)
+    return gn.to(dtype), sidx, maf.to(dtype)
+
+
+def _edge_cases(card):
+    """Both redesigned kernels against their plain versions where their
+    layouts have edges: one pair; pair counts that leave a block's groups
+    part-filled; I = 1, 37, 100; I on both sides of every change of the
+    group size and at the gather rung's design limit (one past it is
+    refused with both numbers); cluster sizes 1, 2 and 8 and one past the
+    cluster's capacity (the streamed body, by its counter); x = 0 pairs;
+    --ignore_miss_data off and on; f64 tables."""
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    # where the rule changes G (f32 tables, then f64), and the design limit
+    steps = {}
+    for esz in (4, 8):
+        prev = pmod.gather_group(1, esz, dev)
+        for n in range(2, 6_000):
+            g = pmod.gather_group(n, esz, dev)
+            if g != prev:
+                steps.setdefault(esz, []).append((n - 1, n, prev, g))
+                prev = g
+            if g is None:
+                break
+    limit = steps[4][-1][0]    # the last cohort a block of slots holds
+    cases = [("gather", 1, 1_001), ("gather", 37, 1), ("gather", 37, 1_001),
+             ("gather", 100, 4_099)]
+    for lo, hi, _, g in steps[4][:-1]:
+        cases += [("gather", lo, 2_048), ("gather", hi, 2_048)]
+    cases += [("gather", limit, 512)]
+    sizes = {}   # the first cohort of each cluster size
+    for n in range(1, 80_000, 7):
+        sizes.setdefault(pmod.ichunk_cluster(n, 4, dev), n)
+    if not {1, 2, 8, None} <= set(sizes):
+        raise AssertionError(f"cluster sizes reached: {sorted(sizes, key=str)}")
+    cap = sizes[None]
+    while pmod.ichunk_cluster(cap - 1, 4, dev) is None:
+        cap -= 1
+    cases += [("cluster", 37, 1), ("cluster", 100, 257),
+              ("cluster", sizes[2], 257), ("cluster", sizes[8], 129),
+              ("cluster", cap - 1, 64), ("stream", cap, 64)]
+    n_cases, worst, seen = 0, {4: 0.0, 8: 0.0}, []
+    for kind, n_ind, n_pairs in cases:
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+            esz = 4 if dtype == torch.float32 else 8
+            if kind == "gather" and pmod.gather_group(n_ind, esz, dev) is None:
+                continue
+            if dtype == torch.float64 and n_ind > 40_000:
+                continue      # the f64 cluster's capacity is half
+            gn, sidx, maf = _gather_case(n_ind, n_pairs, n_ind % 97, dtype,
+                                         dev)
+            for ign in (False, True):
+                if kind == "gather":
+                    kern = pmod.pair_em_gather(gn, sidx, maf, ign)
+                    plain = pmod.pair_em_gather_ref(gn, sidx, maf, ign)
+                elif kind == "cluster":
+                    kern = _ichunk_cluster(gn, sidx, maf, ign)
+                    plain = pmod.pair_em_ichunk_ref(gn, sidx, maf, ign)
+                else:
+                    n0 = pmod.LAUNCHES_ICHUNK_STREAM
+                    kern = pmod.pair_em_ichunk(gn, sidx, maf, ign)
+                    if pmod.LAUNCHES_ICHUNK_STREAM != n0 + 1:
+                        raise AssertionError(f"I = {n_ind}: not streamed")
+                    plain = pmod.pair_em_ichunk_ref(gn, sidx, maf, ign)
+                err, n_x0 = _check(kern, plain, tol, f"{kind} I={n_ind} "
+                                   f"P={n_pairs} {dtype} ign={ign}",
+                                   quiet=True)
+                worst[esz] = max(worst[esz], err)
+                n_cases += 1
+            what = (f"G={pmod.gather_group(n_ind, esz, dev)}"
+                    if kind == "gather" else
+                    f"C={pmod.ichunk_cluster(n_ind, esz, dev)}")
+            seen.append(f"{kind} I={n_ind} P={n_pairs} {esz * 8}-bit {what}"
+                        f" x0={n_x0}")
+            del gn, sidx, maf, kern, plain
+    # one past the gather rung's design limit: refused with both numbers
+    gn, sidx, maf = _gather_case(limit + 1, 4, 1, torch.float32, dev)
+    try:
+        pmod.pair_em_gather(gn, sidx, maf, False)
+    except ValueError as e:
+        need = pmod.gather_smem(limit + 1, 32, 4)
+        if str(need) not in str(e) or str(pmod.smem_limits(dev)[1]) \
+                not in str(e):
+            raise AssertionError(f"refusal without the numbers: {e}")
+    else:
+        raise AssertionError(f"pair_em_gather took I = {limit + 1}")
+    del gn, sidx, maf
+    print(f"  {n_cases} edge cases agree with the plain versions (nIter and "
+          f"n_used exact, max|df| f32 {worst[4]:.3e}, f64 {worst[8]:.3e}): "
+          + "; ".join(seen))
+    print(f"  group size steps (last cohort, first cohort, G before, G "
+          f"after): f32 {steps[4]}, f64 {steps[8]}; the gather rung's "
+          f"design limit {limit} (I = {limit + 1} refused with both "
+          f"numbers); cluster sizes first reached at "
+          f"{json.dumps({str(k): v for k, v in sizes.items()})}, "
+          f"capacity {cap - 1} individuals in f32")
+
+
+def _crossovers(card):
+    """The gather ladder's crossovers on the same pairs of a tiled panel:
+    pair_em_gather against pair_em_rows (f32 and f64 tables), then
+    pair_em_rows against pair_em_ichunk (its cluster body; the rows kernel
+    is refused past its limit), each pair of runs held together; at two
+    pair counts."""
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    out = {}
+    for n_pairs in X_P:
+        rng = np.random.default_rng(11)
+        sidx = torch.from_numpy(np.stack([rng.integers(0, 4_096, n_pairs),
+                                          rng.integers(0, 4_096, n_pairs)])
+                                .astype(np.int32)).to(dev)
+        cells = [(n, torch.float32) for n in
+                 sorted(set(X_GATHER_ROWS) | set(X_ROWS_ICHUNK))]
+        cells += [(n, torch.float64) for n in X_GATHER_ROWS_F64]
+        for n_ind, dtype in cells:
+            gn, _, maf = _tiled_panel(4_096, n_ind, 13, dev)
+            gn, maf = gn.to(dtype), maf.to(dtype)
+            esz = gn.element_size()
+            tol = F32_TOL if esz == 4 else F64_TOL
+            row, runs = {}, {}
+            fns = {"rows": pmod.pair_em_rows}
+            if n_ind in X_GATHER_ROWS or esz == 8:
+                fns["gather"] = pmod.pair_em_gather
+            if n_ind in X_ROWS_ICHUNK and esz == 4:
+                fns["ichunk"] = _ichunk_cluster
+            for name, fn in fns.items():
+                try:
+                    ms, runs[name] = _time(lambda: fn(gn, sidx, maf, False))
+                    row[name] = round(ms, 3)
+                except ValueError as e:
+                    if name != "rows" or "shared memory" not in str(e):
+                        raise
+                    row[name] = None
+            first = next(iter(runs.values()))
+            for name, o in runs.items():
+                _check(o, first, tol, f"I = {n_ind} {name}", quiet=True)
+            row["pick"] = pmod.pick_gather_kernel(n_ind, esz, dev)
+            if "ichunk" in fns:
+                row["C"] = pmod.ichunk_cluster(n_ind, esz, dev)
+            out[f"{esz * 8}-bit P={n_pairs} I={n_ind}"] = row
+            del gn, maf, runs, first
+        del sidx
+    print("  crossovers, random pairs of 4,096 sites (tiled panel), ms (None: "
+          "refused) and the ladder's pick: " + json.dumps(out) + f" [{card}]")
+    return out
+
+
+def phase_gather_design(card):
+    sass = _sass_lines(GATHER_KERNELS_SASS)
+    _group_sweep(card, sass)
+    _cluster_sweep(card)
+    _edge_cases(card)
+    _crossovers(card)
+
 
 # ---------------------------------------------------------------- phase 4
 
@@ -1160,6 +1526,7 @@ def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000):
     real_stdout = sys.stdout
     # the path's counts start here
     pmod.LAUNCHES = pmod.LAUNCHES_ROWS = pmod.LAUNCHES_ICHUNK = 0
+    pmod.LAUNCHES_ICHUNK_STREAM = 0
     smod.LAUNCHES = smod.LAUNCHES_STREAM = 0
     t0 = time.perf_counter()
     try:
@@ -1172,6 +1539,7 @@ def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000):
     launches = dict(pair_em=pmod.LAUNCHES, strip_em=smod.LAUNCHES,  # read
                     pair_em_rows=pmod.LAUNCHES_ROWS,
                     pair_em_ichunk=pmod.LAUNCHES_ICHUNK,
+                    pair_em_ichunk_stream=pmod.LAUNCHES_ICHUNK_STREAM,
                     strip_em_stream=smod.LAUNCHES_STREAM)
     if rc != 0:
         raise AssertionError(f"run rc {rc}\n{err[-4000:]}")
@@ -1185,6 +1553,7 @@ def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000):
 
 
 _NO_LAUNCHES = dict(pair_em=0, strip_em=0, pair_em_rows=0, pair_em_ichunk=0,
+                    pair_em_ichunk_stream=0,
                     strip_em_stream=0)
 
 
@@ -1423,12 +1792,27 @@ def main(argv=()) -> int:
         card = _phase(results, "1 environment", phase_env)
         _phase(results, "2 build", phase_build)
         _phase(results, "3 strip kernels vs plain",
-               lambda: phase_kernel(card, strip_only=True))
+               lambda: phase_kernel(card, gather=False))
         _phase(results, "3b streamed strip kernel vs plain",
-               lambda: phase_kernel_large(card, strip_only=True))
+               lambda: phase_kernel_large(card, gather=False))
         _phase(results, "3c strip kernels' design",
                lambda: phase_strip_design(card))
         print("chip_smoke --strip-only: "
+              + ("PASS" if all(results) else "FAILED"))
+        return 0 if all(results) else 1
+    if "--gather-only" in argv:
+        # a short look at the two gather kernels that phases 3 and 3b time:
+        # build, their cells of phases 3 and 3b, phase 3d; prints neither
+        # the kernels line nor the ok line
+        card = _phase(results, "1 environment", phase_env)
+        _phase(results, "2 build", phase_build)
+        _phase(results, "3 gather kernel vs plain",
+               lambda: phase_kernel(card, strip=False))
+        _phase(results, "3b large-cohort gather kernels vs plain",
+               lambda: phase_kernel_large(card, strip=False))
+        _phase(results, "3d gather kernels' design",
+               lambda: phase_gather_design(card))
+        print("chip_smoke --gather-only: "
               + ("PASS" if all(results) else "FAILED"))
         return 0 if all(results) else 1
     with tempfile.TemporaryDirectory(prefix="ngsld_chip_smoke_") as tmp:
@@ -1439,6 +1823,8 @@ def main(argv=()) -> int:
                      lambda: phase_kernel_large(card))
         _phase(results, "3c strip kernels' design",
                lambda: phase_strip_design(card))
+        _phase(results, "3d gather kernels' design",
+               lambda: phase_gather_design(card))
         _phase(results, "4 slice vs strict", lambda: phase_slice(tmp))
         real = _phase(results, "5 real size", lambda: phase_real(tmp, card))
         large = _phase(results, "5b large cohort through the CLI",

@@ -1,36 +1,59 @@
 // Gathered-pair two-locus EM for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel ngsld_tpu/kernels/pallas_em.py::_em_kernel
-// together with its input prep (_prep/_layout): the same math as
-// ngsld_tpu/ops/em.py, computed straight from the device-resident site
-// table. Inputs: gn (S, I, 3) normal-space GLs, sidx (2, P) int32 site
+// (pallas_em.py:57) together with its input prep (_prep/_layout): the same
+// math as ngsld_tpu/ops/em.py, computed straight from the device-resident
+// site table. Inputs: gn (S, I, 3) normal-space GLs, sidx (2, P) int32 site
 // indices (row 0 anchors, row 1 partners), maf (S,). Outputs: f (P, 4),
 // n_iter (P,) int32, n_used (P,) int32. The caller guarantees every index
 // lies in [0, S).
 //
 // Arithmetic: the tables and f come in the table dtype (float or double),
-// but the EM itself always runs in double. A float EM decides the stop
-// iteration on float-rounded frequencies; where eps lands within that
-// rounding of EPSILON (9.997e-6 in a real fixture) it stops one iteration
-// away from the f64 reference, and on pairs with a small D' denominator
-// that moves D' past the engine's f32 output contract. This card's double
-// rate makes the exact stop point cheap.
+// but the EM itself always runs in double (em_core.cuh). A float EM decides
+// the stop iteration on float-rounded frequencies; where eps lands within
+// that rounding of EPSILON (9.997e-6 in a real fixture) it stops one
+// iteration away from the f64 reference, and on pairs with a small D'
+// denominator that moves D' past the engine's f32 output contract.
 //
 // What bounds it on this card: each (pair, individual, iteration) costs
-// 40 double-precision flops, one of them an IEEE division (counted in
-// em_core.cuh), and reads 24 bytes of GLs (48 from a double table). A
-// pair's two GL rows are 6*I
-// contiguous values (2.4 KB at I = 100 in float), re-read every
-// iteration; they stay in L1/L2, so the loop is bound by arithmetic and by
-// the per-iteration warp reductions rather than by device memory.
+// 40 double-precision flops, one of them an IEEE division, so the work is
+// operations: at I = 100 the fp64 pipe (29 instructions a term, 64 lanes a
+// clock an SM) is the floor. A pair's rows are 24 I bytes of floats, read
+// once from device memory.
 //
-// Design: one warp per pair. Lanes stride over individuals, so the loads
-// of a row coalesce; each lane accumulates its share of S_k =
-// sum_i include_i * D_k[i] / s[i], and a butterfly shuffle gives every
-// lane the four sums. Each warp iterates to its own convergence, so the
-// per-pair freeze is exact and costs nothing, with no sorting of pairs
-// by difficulty. The gather happens in the kernel: there is no (P, I, 3)
-// copy and no relayout.
+// Design (what held the warp-per-pair kernel back, and the answer):
+//  - Lane groups. G lanes take one pair (G a power of two picked from I by
+//    the wrapper, kernels/pair_em.py::gather_group), so a warp runs 32 / G
+//    pairs and at I = 100 no longer leaves a quarter of its lanes idle; the
+//    four sums reduce over log2 G shuffle levels, and the fixed cost of an
+//    iteration (the reductions, four IEEE divisions of em_update) is paid
+//    for 32 / G pairs at once.
+//  - A pair queue. The grid is persistent (blocks an SM from the occupancy
+//    API, fewer when the pairs do not fill them); when a group's pair
+//    stops, the group writes its outputs and takes the next pair index from
+//    a global atomicAdd counter that the wrapper zeroes for each launch. A
+//    group holds one pair at a time, so a launch with fewer pairs than
+//    twice the resident groups spreads them over all groups (a pair fetched
+//    one ahead left about a third of the groups idle at 16,384 pairs;
+//    PERF.md has both versions' times). No lane waits for another pair's
+//    convergence; only the launch's last pairs leave a tail. The
+//    iteration body runs in uniform control flow across the warp; the
+//    switch of a group to its next pair is one short divergent section,
+//    closed by __syncwarp().
+//  - The rows on chip once a pair. A group stages its pair's two rows into
+//    its own slot of shared memory when it takes the pair (counting n_used
+//    in the same pass), in the table's type, so the iteration loop reads
+//    shared memory only (slots widened to doubles lost at every G: half
+//    the resident warps cost more than the six F2F a term they save).
+//    Lane q owns individuals q, q + G, ...: it stages and reads only its
+//    own, so no barrier sits between staging and use, and plain loads
+//    serve (the n_used count needs the values in registers anyway; no
+//    cp.async). The slot stride (from the wrapper) is congruent to 3 G
+//    words modulo the banks, so the 32 lanes of a warp hit 32 distinct
+//    banks.
+// Which group runs a pair changes from launch to launch; a pair's sums do
+// not depend on it (lane q of any group adds the same individuals in the
+// same order), so two launches on the same inputs give the same bits.
 //
 // Semantics kept exactly (ngsld_tpu/ops/em.py:34-107): f0 from the MAFs;
 // n_used counts individuals that pass the miss test |g0-g1| < EPSILON &&
@@ -44,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "em_core.cuh"
 
 namespace {
@@ -52,116 +77,197 @@ using ngsld::em_term;
 using ngsld::em_update;
 using ngsld::is_miss;
 using ngsld::kEpsilon;
-using ngsld::warp_sum;
 
 constexpr int kIterMax = 100;      // ITER_MAX (gen_func.hpp:18)
-constexpr int kWarpsPerBlock = 4;
+constexpr int kThreads = 64;       // two warps a block (GATHER_THREADS)
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// The sum of v over the G lanes of a group, in each of them (a butterfly:
+// both lanes of a pair add the same two values, so all hold the same bits).
+// `mask` names the lanes that take part: whole groups.
+template <typename V>
+__device__ __forceinline__ V group_sum(V v, int G, unsigned mask) {
+  for (int o = G >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+  return v;
+}
+
 template <typename T, bool kIgnoreMiss>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kThreads)
 pair_em_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
-               const T* __restrict__ maf, int64_t P, int I,
+               const T* __restrict__ maf, int64_t P, int I, int G, int slot,
+               unsigned long long* __restrict__ next,
                T* __restrict__ f_out, int32_t* __restrict__ n_iter_out,
                int32_t* __restrict__ n_used_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
-  const int64_t p =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= P) return;  // the whole warp leaves together
+  const int q = lane & (G - 1);       // this lane's place in its group
+  const int lead = lane - q;          // the group's first lane
+  T* __restrict__ r1 =
+      reinterpret_cast<T*>(smem_raw) + (int64_t)(threadIdx.x / G) * slot;
+  T* __restrict__ r2 = r1 + 3 * I;   // (I, 3) of site 1, then of site 2
 
-  const int64_t s1 = sidx[p], s2 = sidx[P + p];
-  const T* __restrict__ g1 = gn + s1 * I * 3;
-  const T* __restrict__ g2 = gn + s2 * I * 3;
+  // the next pair index from the queue, in every lane of the group
+  auto fetch = [&](unsigned mask) -> int64_t {
+    unsigned long long v = 0;
+    if (q == 0) v = atomicAdd(next, 1ull);
+    return (int64_t)__shfl_sync(mask, v, lead);
+  };
 
-  const double m1 = maf[s1], m2 = maf[s2];
-  double f0 = (1.0 - m1) * (1.0 - m2), f1 = (1.0 - m1) * m2;
-  double f2 = m1 * (1.0 - m2), f3 = m1 * m2;
+  int64_t p = fetch(kFullMask);
+  double f0 = 0, f1 = 0, f2 = 0, f3 = 0, inv_x = 0;
+  int cnt = 0, it = 0;
 
-  int cnt = 0;
-  for (int i = lane; i < I; i += 32) {
-    if (kIgnoreMiss) {
-      const T* a = g1 + 3 * i;
-      const T* b = g2 + 3 * i;
-      cnt += !(is_miss(a[0], a[1], a[2]) || is_miss(b[0], b[1], b[2]));
-    } else {
-      cnt += 1;
+  // stage pair p's rows into the slot (this lane's individuals), count
+  // n_used, start f from the MAFs
+  auto take = [&](unsigned mask) {
+    it = 0;
+    cnt = 0;
+    if (p < P) {
+      const int64_t s1 = sidx[p], s2 = sidx[P + p];
+      const T* __restrict__ g1 = gn + s1 * I * 3;
+      const T* __restrict__ g2 = gn + s2 * I * 3;
+      for (int i = q; i < I; i += G) {
+        const T x0 = g1[3 * i], x1 = g1[3 * i + 1], x2 = g1[3 * i + 2];
+        const T y0 = g2[3 * i], y1 = g2[3 * i + 1], y2 = g2[3 * i + 2];
+        if (kIgnoreMiss) {
+          cnt += !(is_miss(x0, x1, x2) || is_miss(y0, y1, y2));
+        } else {
+          cnt += 1;
+        }
+        r1[3 * i] = x0;
+        r1[3 * i + 1] = x1;
+        r1[3 * i + 2] = x2;
+        r2[3 * i] = y0;
+        r2[3 * i + 1] = y1;
+        r2[3 * i + 2] = y2;
+      }
+      const double m1 = maf[s1], m2 = maf[s2];
+      f0 = (1.0 - m1) * (1.0 - m2);
+      f1 = (1.0 - m1) * m2;
+      f2 = m1 * (1.0 - m2);
+      f3 = m1 * m2;
     }
-  }
-  cnt = warp_sum(cnt);
-  const double inv_x = 1.0 / (double)cnt;
+    cnt = group_sum(cnt, G, mask);
+    inv_x = 1.0 / (double)cnt;
+  };
 
-  int n_iter = kIterMax;
-  for (int it = 0; it < kIterMax; ++it) {
+  take(kFullMask);
+  while (__any_sync(kFullMask, p < P)) {
+    // one EM iteration of every group's pair, in uniform control flow
     double a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-    for (int i = lane; i < I; i += 32) {
-      const double x0 = g1[3 * i], x1 = g1[3 * i + 1], x2 = g1[3 * i + 2];
-      const double y0 = g2[3 * i], y1 = g2[3 * i + 1], y2 = g2[3 * i + 2];
-      em_term<kIgnoreMiss>(x0, x1, x2, y0, y1, y2, f0, f1, f2, f3, a0,
-                           a1, a2, a3);
+    if (p < P) {
+#pragma unroll 2
+      for (int i = q; i < I; i += G) {
+        const double x0 = r1[3 * i], x1 = r1[3 * i + 1], x2 = r1[3 * i + 2];
+        const double y0 = r2[3 * i], y1 = r2[3 * i + 1], y2 = r2[3 * i + 2];
+        em_term<kIgnoreMiss>(x0, x1, x2, y0, y1, y2, f0, f1, f2, f3, a0,
+                             a1, a2, a3);
+      }
     }
-    a0 = warp_sum(a0);
-    a1 = warp_sum(a1);
-    a2 = warp_sum(a2);
-    a3 = warp_sum(a3);
+    a0 = group_sum(a0, G, kFullMask);
+    a1 = group_sum(a1, G, kFullMask);
+    a2 = group_sum(a2, G, kFullMask);
+    a3 = group_sum(a3, G, kFullMask);
+    // every lane of a group holds the same sums, hence the same decision
     const double eps = em_update(f0, f1, f2, f3, a0, a1, a2, a3, inv_x);
-    // every lane holds the same sums; take lane 0's decision so the warp
-    // can never split at the break
-    if (__shfl_sync(kFullMask, (int)(eps < kEpsilon), 0)) {
-      n_iter = it;
-      break;
+    bool done = false;
+    int n_iter = 0;
+    if (p < P) {
+      if (eps < kEpsilon) {
+        done = true;
+        n_iter = it;
+      } else if (++it == kIterMax) {
+        done = true;
+        n_iter = kIterMax;
+      }
     }
+    // the switch: the groups whose pair stopped write it and take the next
+    const unsigned dmask = __ballot_sync(kFullMask, done);
+    if (done) {
+      if (q == 0) {
+        f_out[4 * p + 0] = (T)f0;
+        f_out[4 * p + 1] = (T)f1;
+        f_out[4 * p + 2] = (T)f2;
+        f_out[4 * p + 3] = (T)f3;
+        n_iter_out[p] = n_iter;
+        n_used_out[p] = cnt;
+      }
+      p = fetch(dmask);
+      take(dmask);
+    }
+    __syncwarp();
   }
+}
 
-  if (lane == 0) {
-    f_out[4 * p + 0] = (T)f0;
-    f_out[4 * p + 1] = (T)f1;
-    f_out[4 * p + 2] = (T)f2;
-    f_out[4 * p + 3] = (T)f3;
-    n_iter_out[p] = n_iter;
-    n_used_out[p] = cnt;
-  }
+template <typename T, bool kIgnoreMiss>
+int launch_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
+               int G, int slot, unsigned long long* next, T* fo, int32_t* it,
+               int32_t* nu, cudaStream_t st) {
+  auto kern = pair_em_kernel<T, kIgnoreMiss>;
+  const size_t smem = (size_t)(kThreads / G) * slot * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // persistent: as many blocks as the card holds at once, fewer when the
+  // pairs do not fill them
+  const int64_t groups = kThreads / G;
+  const int64_t blocks =
+      std::min<int64_t>((int64_t)per_sm * sms, (P + groups - 1) / groups);
+  pair_em_kernel<T, kIgnoreMiss><<<(unsigned)blocks, kThreads, smem, st>>>(
+      g, ix, m, P, I, G, slot, next, fo, it, nu);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* gn, const void* sidx, const void* maf, int64_t P,
-           int I, int ignore_miss, void* f, void* n_iter, void* n_used,
-           void* stream) {
+           int I, int G, int slot, int ignore_miss, void* next, void* f,
+           void* n_iter, void* n_used, void* stream) {
   if (P <= 0) return 0;
-  const int threads = kWarpsPerBlock * 32;
-  const int64_t blocks = (P + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (I <= 0 || G < 1 || G > 32 || (G & (G - 1)) || slot < 6 * I)
+    return (int)cudaErrorInvalidValue;
   const T* g = static_cast<const T*>(gn);
   const int32_t* ix = static_cast<const int32_t*>(sidx);
   const T* m = static_cast<const T*>(maf);
+  unsigned long long* nx = static_cast<unsigned long long*>(next);
   T* fo = static_cast<T*>(f);
   int32_t* it = static_cast<int32_t*>(n_iter);
   int32_t* nu = static_cast<int32_t*>(n_used);
-  if (ignore_miss) {
-    pair_em_kernel<T, true><<<(unsigned)blocks, threads, 0, st>>>(
-        g, ix, m, P, I, fo, it, nu);
-  } else {
-    pair_em_kernel<T, false><<<(unsigned)blocks, threads, 0, st>>>(
-        g, ix, m, P, I, fo, it, nu);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ignore_miss
+             ? launch_one<T, true>(g, ix, m, P, I, G, slot, nx, fo, it, nu, st)
+             : launch_one<T, false>(g, ix, m, P, I, G, slot, nx, fo, it, nu,
+                                    st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// slot: a group's shared-memory stride in table values; next: one zeroed
+// 64-bit counter, the pair queue's head.
 int ngsld_pair_em_f32(const void* gn, const void* sidx, const void* maf,
-                      int64_t P, int I, int ignore_miss, void* f,
-                      void* n_iter, void* n_used, void* stream) {
-  return launch<float>(gn, sidx, maf, P, I, ignore_miss, f, n_iter, n_used,
-                       stream);
+                      int64_t P, int I, int G, int slot, int ignore_miss,
+                      void* next, void* f, void* n_iter, void* n_used,
+                      void* stream) {
+  return launch<float>(gn, sidx, maf, P, I, G, slot, ignore_miss, next, f,
+                       n_iter, n_used, stream);
 }
 
 int ngsld_pair_em_f64(const void* gn, const void* sidx, const void* maf,
-                      int64_t P, int I, int ignore_miss, void* f,
-                      void* n_iter, void* n_used, void* stream) {
-  return launch<double>(gn, sidx, maf, P, I, ignore_miss, f, n_iter, n_used,
-                        stream);
+                      int64_t P, int I, int G, int slot, int ignore_miss,
+                      void* next, void* f, void* n_iter, void* n_used,
+                      void* stream) {
+  return launch<double>(gn, sidx, maf, P, I, G, slot, ignore_miss, next, f,
+                        n_iter, n_used, stream);
 }
 
 }  // extern "C"

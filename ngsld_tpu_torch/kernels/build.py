@@ -36,15 +36,22 @@ _vp, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # cudaError of its launch as an int (the *_smem entry points: bytes)
 ENTRY_POINTS = {
     "pair_em": {
-        name: [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp]
+        name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp, _vp,
+               _vp, _vp]
         for name in ("ngsld_pair_em_f32", "ngsld_pair_em_f64")},
     "pair_em_rows": {
         **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp]
            for name in ("ngsld_pair_em_rows_f32", "ngsld_pair_em_rows_f64")},
         "ngsld_smem_limits": [_vp]},
     "pair_em_ichunk": {
-        name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp]
-        for name in ("ngsld_pair_em_ichunk_f32", "ngsld_pair_em_ichunk_f64")},
+        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp]
+           for name in ("ngsld_pair_em_ichunk_f32",
+                        "ngsld_pair_em_ichunk_f64")},
+        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp, _vp,
+                  _vp]
+           for name in ("ngsld_pair_em_cluster_f32",
+                        "ngsld_pair_em_cluster_f64")},
+        "ngsld_pair_em_cluster_occupancy": [_i32] * 5 + [_vp]},
     "strip_em": {
         "ngsld_strip_em": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 7
         + [_vp] * 5,

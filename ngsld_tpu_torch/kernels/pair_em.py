@@ -5,16 +5,25 @@ Each wrapper runs the EM for the pairs sidx (2, P) straight from the
 device-resident site table gn (S, I, 3): on a CUDA tensor it launches its
 kernel or raises; on a CPU tensor it runs its plain PyTorch version.
 
-  pair_em_gather   csrc/pair_em.cu         one warp per pair, rows re-read
-                   (pallas_em._em_kernel)  from L1/L2 every iteration
+  pair_em_gather   csrc/pair_em.cu         lane groups of G lanes a pair fed
+                   (pallas_em._em_kernel)  from a pair queue, a pair's rows
+                                           in its group's slot of shared
+                                           memory
   pair_em_rows     csrc/pair_em_rows.cu    one block per pair, both rows
                    (_em_kernel_rows)       resident in shared memory
-  pair_em_ichunk   csrc/pair_em_ichunk.cu  one block per pair, rows streamed
-                   (_em_kernel_ichunk)     through shared memory per chunk
+  pair_em_ichunk   csrc/pair_em_ichunk.cu  one cluster of C blocks per pair,
+                   (_em_kernel_ichunk)     the rows held across the
+                                           cluster's shared memory; past
+                                           its capacity one block per pair,
+                                           rows streamed per chunk
 
 pick_gather_kernel(n_ind) is the ladder of ngsld_tpu/compute.py:99-117 with
-the card's shared memory in the place of the TPU's VMEM. LAUNCHES,
-LAUNCHES_ROWS and LAUNCHES_ICHUNK count kernel launches, nothing else.
+the card's shared memory in the place of the TPU's VMEM and the switches
+where the card measured them. The launch arithmetic of the gather and
+cluster kernels (group size, slot, cluster size, threads) lives here, so
+that the CPU tests reach it. LAUNCHES, LAUNCHES_ROWS and LAUNCHES_ICHUNK
+count kernel launches, nothing else; LAUNCHES_ICHUNK_STREAM counts the
+launches of pair_em_ichunk that took the streamed body.
 """
 
 from __future__ import annotations
@@ -24,16 +33,35 @@ import torch
 from ..ops.em import pair_em
 from .build import smem_limits
 
-LAUNCHES = 0          # pair_em_gather
-LAUNCHES_ROWS = 0     # pair_em_rows
-LAUNCHES_ICHUNK = 0   # pair_em_ichunk
+LAUNCHES = 0                 # pair_em_gather
+LAUNCHES_ROWS = 0            # pair_em_rows
+LAUNCHES_ICHUNK = 0          # pair_em_ichunk, either body
+LAUNCHES_ICHUNK_STREAM = 0   # pair_em_ichunk, the streamed body
 
-# individuals per staged chunk of pair_em_ichunk: 2 buffers x 2 rows x
-# 12 bytes x 1,024 = 48 KB of shared memory in f32, four blocks an SM
+# individuals per staged chunk of pair_em_ichunk's streamed body: 2 buffers
+# x 2 rows x 12 bytes x 1,024 = 48 KB of shared memory in f32
 I_CHUNK = 1024
 # shared memory the rows kernel keeps for its reductions (static)
 _ROWS_RESERVED = 1024
+# shared memory the card keeps for itself in every resident block
+_BLOCK_RESERVED = 1024
 
+# ---- csrc/pair_em.cu: lane groups fed from a pair queue
+GATHER_THREADS = 64     # a block: two warps (kThreads in the source)
+# warps an SM the group size aims at: the smallest G whose slots leave this
+# many resident warps
+GATHER_WARPS_SM = 16
+# the gather rung's last cohort size, by table itemsize: the measured
+# crossover with the rows kernel (phase 3d of chip_smoke.py), unless the
+# design limit comes first
+GATHER_MAX_IND = {4: 700, 8: 200}
+
+# ---- csrc/pair_em_ichunk.cu, the cluster body
+CLUSTER_MAX = 8          # blocks in a cluster, the portable limit
+CLUSTER_BLOCKS_SM = 2    # resident blocks an SM the cluster size aims at
+CLUSTER_TERMS = 16       # individuals a thread an iteration, at most
+# static shared memory of the cluster body's block, and the card's own
+_CLUSTER_RESERVED = 2048
 
 def _pair_em_ref(gn, sidx, maf, ignore_miss_data, i_chunk=None):
     s1, s2 = sidx[0].long(), sidx[1].long()
@@ -89,23 +117,112 @@ def rows_smem_bytes(n_ind: int, itemsize: int = 4) -> int:
     return 2 * 3 * n_ind * itemsize
 
 
+def _sm_bytes(device) -> int:
+    """Shared memory of an SM: a block's opt-in limit and the card's own
+    reserve of one block (232,448 + 1,024 on an H100)."""
+    return smem_limits(device)[1] + _BLOCK_RESERVED
+
+
+def gather_slot(n_ind: int, group: int, itemsize: int = 4) -> int:
+    """A lane group's slot, in table values: both rows, 6 I, padded up to
+    a stride congruent to 3 G modulo the banks (32 words of 4 bytes; 16
+    for 8-byte values, which a warp reads half at a time), so that lane q
+    of the j-th group of a warp, reading value 3 (q + k G) + c of its slot,
+    hits bank 3 (j G + q) + const: 32 distinct banks."""
+    mod = 32 if itemsize == 4 else 16
+    need = 6 * n_ind
+    return need + (3 * group - need) % mod
+
+
+def gather_smem(n_ind: int, group: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one pair_em_gather block: its groups'
+    slots."""
+    return (GATHER_THREADS // group) * gather_slot(n_ind, group,
+                                                   itemsize) * itemsize
+
+
+def gather_warps_sm(n_ind: int, group: int, itemsize: int = 4,
+                    device="cpu") -> int:
+    """Warps of pair_em_gather an SM's shared memory holds at group size
+    G (registers and the card's thread limit may allow fewer)."""
+    need = gather_smem(n_ind, group, itemsize)
+    if need > smem_limits(device)[1]:
+        return 0
+    return GATHER_THREADS // 32 * (_sm_bytes(device)
+                                   // (need + _BLOCK_RESERVED))
+
+
+def gather_group(n_ind: int, itemsize: int = 4, device="cpu") -> int | None:
+    """Lanes a pair in pair_em_gather: the smallest power of two whose
+    slots leave GATHER_WARPS_SM warps an SM (fewer lanes a pair, fewer
+    reductions and less idle lane time per term), 32 when none does but a
+    block still fits, None when not even that (the rung's design limit)."""
+    for g in (1, 2, 4, 8, 16, 32):
+        if gather_warps_sm(n_ind, g, itemsize, device) >= GATHER_WARPS_SM:
+            return g
+    return 32 if gather_warps_sm(n_ind, 32, itemsize, device) else None
+
+
+def cluster_slice(n_ind: int, blocks: int, itemsize: int = 4) -> int:
+    """Individuals a block of the cluster body holds: its share of the
+    cohort, on whole 16-byte runs of the row."""
+    per = 16 // itemsize
+    return -(-(-(-n_ind // blocks)) // per) * per
+
+
+def cluster_smem(n_ind: int, blocks: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of a block of the cluster body: its slice of
+    both rows."""
+    return 6 * cluster_slice(n_ind, blocks, itemsize) * itemsize
+
+
+def ichunk_cluster(n_ind: int, itemsize: int = 4, device="cpu") -> int | None:
+    """Blocks in the cluster that holds a pair's rows in pair_em_ichunk:
+    the smallest C <= CLUSTER_MAX whose slices fit CLUSTER_BLOCKS_SM blocks
+    an SM, else the smallest that fits one block an SM; None past the
+    cluster's capacity (CLUSTER_MAX blocks of the opt-in shared memory,
+    77,120 individuals in f32 and 38,560 in f64 on an H100), where the
+    streamed body runs."""
+    for per_sm in (CLUSTER_BLOCKS_SM, 1):
+        room = _sm_bytes(device) // per_sm - _CLUSTER_RESERVED
+        for c in range(1, CLUSTER_MAX + 1):
+            if cluster_smem(n_ind, c, itemsize) <= room:
+                return c
+    return None
+
+
+def cluster_threads(n_ind: int, blocks: int, itemsize: int = 4) -> int:
+    """Threads a block of the cluster body: a power of two from 64 to 512
+    giving each thread at most CLUSTER_TERMS individuals an iteration."""
+    per = -(-cluster_slice(n_ind, blocks, itemsize) // CLUSTER_TERMS)
+    t = 64
+    while t < 512 and t < per:
+        t *= 2
+    return t
+
+
 def pick_gather_kernel(n_ind: int, itemsize: int = 4,
                        device: torch.device | str = "cpu") -> str:
     """Which gather kernel runs a cohort of n_ind: "gather", "rows" or
     "ichunk".
 
-    The warp-per-pair kernel re-reads a pair's two rows every iteration and
-    counts on L1 for them, so it keeps cohorts whose rows fit the shared
-    memory/L1 a block has without opting in (2,048 individuals in f32 on an
-    H100). Up to the opt-in limit the rows stay resident in shared memory
-    (pair_em_rows; 9,642 individuals in f32). Beyond that they stream
-    (pair_em_ichunk). These are the kernels' design limits, not measured
-    crossovers."""
-    per_block, optin = smem_limits(device)
-    need = rows_smem_bytes(n_ind, itemsize)
-    if need <= per_block:
+    pair_em_gather to GATHER_MAX_IND individuals: the last cohort of
+    chip_smoke phase 3d's crossover cells at which it beat the rows kernel
+    on 524,288 random pairs (the sweep's default block) on an H100, 700 for
+    f32 tables (the rows kernel ahead from 800) and 200 for f64 tables
+    (ahead from 300; double slots leave fewer resident warps); or to its
+    design limit where that comes first (a block of two warps with one slot
+    each must fit the opt-in shared memory: 4,842 individuals in f32, 2,421
+    in f64). Then the rows resident in one block's shared memory
+    (pair_em_rows) to the opt-in limit (9,642 individuals in f32), then
+    pair_em_ichunk (rows held across a cluster, streamed past its
+    capacity). On blocks of 16,384 pairs the rows kernel measured ahead at
+    every f32 cohort; the ladder reads the cohort only."""
+    if n_ind <= GATHER_MAX_IND[itemsize] \
+            and gather_group(n_ind, itemsize, device) is not None:
         return "gather"
-    if need <= optin - _ROWS_RESERVED:
+    if rows_smem_bytes(n_ind, itemsize) <= smem_limits(device)[1] \
+            - _ROWS_RESERVED:
         return "rows"
     return "ichunk"
 
@@ -117,10 +234,11 @@ def _empty(gn, sidx):
             torch.empty(P, dtype=torch.int32, device=gn.device))
 
 
-def _launch(lib_name, fn_stem, gn, sidx, maf, ignore_miss_data, extra=()):
-    """Allocate the outputs and launch one of the three kernels on P > 0
-    pairs (all share the argument list; `extra` goes between I and
-    ignore_miss)."""
+def _launch(lib_name, fn_stem, gn, sidx, maf, ignore_miss_data, pre=(),
+            post=()):
+    """Allocate the outputs and launch one of the kernels on P > 0 pairs
+    (all share the argument list; `pre` goes between I and ignore_miss,
+    `post` between ignore_miss and the outputs)."""
     from .build import get_library
     lib = get_library(lib_name)
     gn, sidx, maf = gn.contiguous(), sidx.contiguous(), maf.contiguous()
@@ -130,9 +248,9 @@ def _launch(lib_name, fn_stem, gn, sidx, maf, ignore_miss_data, extra=()):
                                  else "_f64"))
     with torch.cuda.device(gn.device):
         stream = torch.cuda.current_stream(gn.device).cuda_stream
-        err = fn(gn.data_ptr(), sidx.data_ptr(), maf.data_ptr(), P, I, *extra,
-                 int(bool(ignore_miss_data)), f.data_ptr(), n_iter.data_ptr(),
-                 n_used.data_ptr(), stream)
+        err = fn(gn.data_ptr(), sidx.data_ptr(), maf.data_ptr(), P, I, *pre,
+                 int(bool(ignore_miss_data)), *post, f.data_ptr(),
+                 n_iter.data_ptr(), n_used.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"{lib_name} CUDA kernel launch failed: cudaError {err}")
@@ -149,15 +267,27 @@ def _device_kind(gn, name):
 def pair_em_gather(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
                    ignore_miss_data: bool):
     """EM for P gathered pairs -> (f (P, 4), n_iter (P,) int32,
-    n_used (P,) int32), in gn's dtype. One warp per pair."""
+    n_used (P,) int32), in gn's dtype. Lane groups of gather_group lanes a
+    pair, fed from a pair queue; raises ValueError for a cohort whose
+    block of slots exceeds the device's opt-in shared memory."""
     global LAUNCHES
     _check(gn, sidx, maf)
     if _device_kind(gn, "pair-EM") == "cpu":
         return pair_em_gather_ref(gn, sidx, maf, ignore_miss_data)
+    I, esz = gn.shape[1], gn.element_size()
+    group = gather_group(I, esz, gn.device)
+    if group is None:
+        raise ValueError(
+            f"pair_em_gather: {I} individuals need {gather_smem(I, 32, esz)} "
+            "bytes of shared memory a block, the device allows "
+            f"{smem_limits(gn.device)[1]}; use pair_em_rows")
     if sidx.shape[1] == 0:
         return _empty(gn, sidx)
+    # the pair queue's head, zeroed for this launch on its stream
+    head = torch.zeros(1, dtype=torch.int64, device=gn.device)
     out = _launch("pair_em", "ngsld_pair_em", gn, sidx, maf,
-                  ignore_miss_data)
+                  ignore_miss_data, pre=(group, gather_slot(I, group, esz)),
+                  post=(head.data_ptr(),))
     LAUNCHES += 1
     return out
 
@@ -185,11 +315,43 @@ def pair_em_rows(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
     return out
 
 
+_CLUSTER_FITS: dict = {}
+
+
+def _cluster_fits(gn, I, blocks, threads, ignore_miss_data):
+    """Raise ValueError unless the card holds at least one cluster of the
+    cluster body at this shape (asked once per shape)."""
+    key = (gn.device, gn.dtype, I, blocks, threads, bool(ignore_miss_data))
+    if key not in _CLUSTER_FITS:
+        import ctypes
+
+        from .build import get_library
+        out = (ctypes.c_int * 1)()
+        with torch.cuda.device(gn.device):
+            err = get_library("pair_em_ichunk") \
+                .ngsld_pair_em_cluster_occupancy(
+                    int(gn.dtype == torch.float64), I, blocks, threads,
+                    int(bool(ignore_miss_data)), ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError("ngsld_pair_em_cluster_occupancy failed: "
+                               f"cudaError {err}")
+        _CLUSTER_FITS[key] = int(out[0])
+    if _CLUSTER_FITS[key] < 1:
+        raise ValueError(
+            f"pair_em_ichunk: a cluster of {blocks} blocks with "
+            f"{cluster_smem(I, blocks, gn.element_size())} bytes of shared "
+            f"memory each: the device holds {_CLUSTER_FITS[key]} such "
+            "clusters")
+
+
 def pair_em_ichunk(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
                    ignore_miss_data: bool, i_chunk: int = I_CHUNK):
-    """pair_em_gather's function with the rows streamed through shared
-    memory in chunks of i_chunk individuals inside every iteration (one
-    block per pair). Any cohort size."""
+    """pair_em_gather's function for any cohort size: the rows held across
+    a cluster of ichunk_cluster blocks (each block a slice, in its shared
+    memory for the whole EM), or, past the cluster's capacity, streamed
+    through shared memory in chunks of i_chunk individuals inside every
+    iteration (one block per pair). The route is decided here, before the
+    launch, by cohort size; a cluster the card cannot hold raises."""
     global LAUNCHES_ICHUNK
     _check(gn, sidx, maf)
     i_chunk = int(i_chunk)
@@ -197,7 +359,29 @@ def pair_em_ichunk(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
         raise ValueError(f"i_chunk must be positive, got {i_chunk}")
     if _device_kind(gn, "pair-EM ichunk") == "cpu":
         return pair_em_ichunk_ref(gn, sidx, maf, ignore_miss_data, i_chunk)
-    need = 2 * rows_smem_bytes(i_chunk, gn.element_size()) + _ROWS_RESERVED
+    I, esz = gn.shape[1], gn.element_size()
+    blocks = ichunk_cluster(I, esz, gn.device)
+    if blocks is not None:
+        threads = cluster_threads(I, blocks, esz)
+        _cluster_fits(gn, I, blocks, threads, ignore_miss_data)
+        if sidx.shape[1] == 0:
+            return _empty(gn, sidx)
+        out = _launch("pair_em_ichunk", "ngsld_pair_em_cluster", gn, sidx,
+                      maf, ignore_miss_data, pre=(blocks, threads))
+        LAUNCHES_ICHUNK += 1
+        return out
+    return _pair_em_ichunk_stream(gn, sidx, maf, ignore_miss_data, i_chunk)
+
+
+def _pair_em_ichunk_stream(gn, sidx, maf, ignore_miss_data,
+                           i_chunk=I_CHUNK):
+    """pair_em_ichunk's streamed body on CUDA tensors of the shapes
+    pair_em_ichunk checks, whatever the cohort size: pair_em_ichunk routes
+    here past the cluster's capacity; chip_smoke.py and the gpu-marked
+    tests call it directly to hold the body against its plain version."""
+    global LAUNCHES_ICHUNK, LAUNCHES_ICHUNK_STREAM
+    esz = gn.element_size()
+    need = 2 * rows_smem_bytes(i_chunk, esz) + _ROWS_RESERVED
     limit = smem_limits(gn.device)[1]
     if need > limit:
         raise ValueError(
@@ -206,8 +390,9 @@ def pair_em_ichunk(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
     if sidx.shape[1] == 0:
         return _empty(gn, sidx)
     out = _launch("pair_em_ichunk", "ngsld_pair_em_ichunk", gn, sidx, maf,
-                  ignore_miss_data, extra=(i_chunk,))
+                  ignore_miss_data, pre=(i_chunk,))
     LAUNCHES_ICHUNK += 1
+    LAUNCHES_ICHUNK_STREAM += 1
     return out
 
 

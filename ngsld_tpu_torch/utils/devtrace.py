@@ -1,6 +1,6 @@
 """What a run on the card can say about itself: device busy time of a
-profiled call, the lane efficiency of a strip-EM launch, and the
-instructions of a compiled kernel's inner loop.
+profiled call, the lane efficiency of a strip-EM or gather-EM launch, and
+the instructions of a compiled kernel's inner loop.
 
 Busy time is the union of the intervals of the device's own events
 (kernels, memcpys, memsets), so an operator and the kernel it launched
@@ -139,6 +139,56 @@ def lane_efficiency(n_iter, live, n_ind, rows=8, cols=32, cap=100,
     return out
 
 
+def gather_lane_use(n_iter, n_ind, group, n_groups, cap=100,
+                    warps_per_block=4):
+    """Needed over executed EM updates of one gather-EM launch, from its
+    n_iter (P,), every pair live: a pair that stopped at 0-based iteration
+    k ran min(k + 1, cap) updates of n_ind individuals. Two layouts:
+      "warp":  one warp a pair (32 lanes over the individuals, ceil(I / 32)
+               trips an iteration), blocks of warps_per_block consecutive
+               pairs that keep their slot until their slowest pair stops;
+      "queue": lane groups of `group` lanes a pair (ceil(I / G) trips an
+               iteration), n_groups persistent groups, 32 / G to a warp,
+               fed from a pair queue in index order: every group takes a
+               pair at the start, and a group whose pair stops takes the
+               next from the queue and starts it at the next step. A warp
+               runs until its last group is done; executed counts all 32
+               lanes of a running warp.
+    All warps are taken to step at one rate. Returns {"needed": evals,
+    "warp": .., "queue": ..} (1.0 when nothing runs)."""
+    import heapq
+
+    import numpy as np
+    u = np.minimum(np.asarray(n_iter, dtype=np.int64) + 1, cap)
+    P = len(u)
+    needed = int(u.sum()) * n_ind
+
+    def share(executed):
+        return needed / executed if executed else 1.0
+
+    out = {"needed": needed}
+    pad = -P % warps_per_block
+    blocks = np.concatenate([u, np.zeros(pad, np.int64)]).reshape(
+        -1, warps_per_block)
+    out["warp"] = share(warps_per_block * 32 * -(-n_ind // 32)
+                        * int(blocks.max(axis=1).sum()))
+    n_groups = max(1, min(n_groups, P))
+    n_groups += -n_groups % (32 // group)   # whole warps
+    end = np.zeros(n_groups, np.int64)      # when a group runs out of work
+    heap = [(int(u[g]), g) for g in range(min(n_groups, P))]
+    heapq.heapify(heap)
+    nxt = len(heap)
+    while heap:
+        t, g = heapq.heappop(heap)
+        end[g] = t
+        if nxt < P:
+            heapq.heappush(heap, (t + int(u[nxt]), g))
+            nxt += 1
+    steps = end.reshape(-1, 32 // group).max(axis=1)
+    out["queue"] = share(32 * -(-n_ind // group) * int(steps.sum()))
+    return out
+
+
 # SASS opcode roots by class; anything else counts as "other"
 _SASS_CLASSES = {
     "fp64": ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX"),
@@ -170,7 +220,9 @@ def sass_inner_loop(sass_text, name_parts):
     The function is the first whose (mangled) name holds every string of
     name_parts. Its loops are the backward branches (a BRA to an address
     at or before itself); the inner loop is the innermost one (it holds no
-    other) with the most double-precision instructions, or the whole
+    other) with the most double-precision instructions among those that
+    hold a division (among all when none does: a loop over the warps'
+    partial sums can hold more DADDs than the EM loop), or the whole
     function when it has no loop. Returns {"function", "loop": [first,
     last address] or None, "n_instr", one count per class of
     _SASS_CLASSES plus "other", "terms"}: "terms" is the number of
@@ -213,7 +265,8 @@ def sass_inner_loop(sass_text, name_parts):
     best, loop = None, None
     for lp in inner:
         c, terms = count(*lp)
-        if best is None or c["fp64"] > best[0]["fp64"]:
+        if best is None or (terms > 0, c["fp64"]) > (best[1] > 0,
+                                                     best[0]["fp64"]):
             best, loop = (c, terms), lp
     if best is None:
         best = count(0, float("inf"))

@@ -141,28 +141,37 @@ def test_chip_smoke_refuses_without_cuda():
                                        (torch.float64, 1e-12)])
 def test_kernel_matches_twin_on_the_card(dtype, tol):
     # both sides run the EM in f64: f agrees to its dtype's rounding, and
-    # nIter and n_used exactly
+    # nIter and n_used exactly; the cases aim at the lane groups' edges:
+    # one individual (one lane a pair), one pair, pair counts that leave a
+    # block's groups part-filled, cohorts on both sides of a change of the
+    # group size; two launches give the same bits
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    gn, sidx, maf = _table("cuda", dtype, n_ind=37, n_sites=300,
-                           n_pairs=5000)
-    for ignore_miss in (False, True):
-        n0 = kmod.LAUNCHES
-        fk, itk, nuk = (t.cpu().numpy() for t in
-                        kmod.pair_em_gather(gn, sidx, maf, ignore_miss))
-        assert kmod.LAUNCHES == n0 + 1
-        fp, itp, nup = (t.cpu().numpy() for t in
-                        kmod.pair_em_gather_ref(gn, sidx, maf, ignore_miss))
-        np.testing.assert_array_equal(nuk, nup)
-        np.testing.assert_array_equal(itk, itp)
-        np.testing.assert_array_equal(np.isnan(fk), np.isnan(fp))
-        nan = np.isnan(fk)
-        np.testing.assert_allclose(np.where(nan, 0, fk), np.where(nan, 0, fp),
-                                   rtol=0, atol=tol)
-        x0 = nup == 0
-        if ignore_miss:
-            assert x0.any()
-        assert np.isnan(fk[x0]).all() and (itk[x0] == 0).all()
+    for n_ind, n_pairs in ((37, 5000), (1, 1001), (37, 1), (100, 4099),
+                           (16, 2048), (17, 2048), (290, 2048), (291, 2048)):
+        gn, sidx, maf = _table("cuda", dtype, n_ind=n_ind, n_sites=300,
+                               n_pairs=n_pairs)
+        for ignore_miss in (False, True):
+            n0 = kmod.LAUNCHES
+            kern = kmod.pair_em_gather(gn, sidx, maf, ignore_miss)
+            assert kmod.LAUNCHES == n0 + 1
+            again = kmod.pair_em_gather(gn, sidx, maf, ignore_miss)
+            for a, b in zip(kern, again):
+                assert torch.equal(a.nan_to_num(), b.nan_to_num())
+            fk, itk, nuk = (t.cpu().numpy() for t in kern)
+            fp, itp, nup = (t.cpu().numpy() for t in
+                            kmod.pair_em_gather_ref(gn, sidx, maf,
+                                                    ignore_miss))
+            np.testing.assert_array_equal(nuk, nup)
+            np.testing.assert_array_equal(itk, itp)
+            np.testing.assert_array_equal(np.isnan(fk), np.isnan(fp))
+            nan = np.isnan(fk)
+            np.testing.assert_allclose(np.where(nan, 0, fk),
+                                       np.where(nan, 0, fp), rtol=0, atol=tol)
+            x0 = nup == 0
+            if ignore_miss and n_pairs > 1000:
+                assert x0.any()
+            assert np.isnan(fk[x0]).all() and (itk[x0] == 0).all()
 
 
 def test_device_busy_is_the_union_of_device_intervals():

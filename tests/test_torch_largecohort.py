@@ -140,17 +140,21 @@ def test_pair_em_ichunk_ref_matches_the_other_rungs():
 # ------------------------------------------------------------- the ladder
 
 def test_pick_gather_kernel_follows_the_shared_memory_limits():
-    """Rung 1 while a pair's two rows (24 bytes an individual in f32) fit
-    the shared memory a block has without opting in, rung 2 up to the
-    opt-in limit less the kernel's own 1 KB, rung 3 beyond; for the CPU the
-    H100's limits stand in."""
+    """Rung 1 (lane groups) to GATHER_MAX_IND individuals, where the rows
+    kernel overtook it on the card at the gather sweep's 524,288-pair
+    block, for each table dtype (or to the lane groups' design limit, where
+    that comes first);
+    rung 2 up to the opt-in limit less the rows kernel's own 1 KB; rung 3
+    beyond; for the CPU the H100's limits stand in."""
     assert smem_limits("cpu") == NOMINAL_SMEM == (49152, 232448)
     pick = kmod.pick_gather_kernel
-    assert [pick(n) for n in (1, 100, 2048)] == ["gather"] * 3
-    assert [pick(n) for n in (2049, 4000, 8000, 9642)] == ["rows"] * 4
+    assert kmod.GATHER_MAX_IND == {4: 700, 8: 200}
+    assert [pick(n) for n in (1, 100, 700)] == ["gather"] * 3
+    assert [pick(n) for n in (701, 2048, 4000, 8000, 9642)] == ["rows"] * 5
     assert [pick(n) for n in (9643, 20000, 10 ** 6)] == ["ichunk"] * 3
-    # f64 tables halve both thresholds
-    assert [pick(n, 8) for n in (1024, 1025, 4821, 4822)] == \
+    # f64 tables: their own measured switch to rows (their slots fit to
+    # 2,421 individuals), the rows kernel's limit halves
+    assert [pick(n, 8) for n in (200, 201, 4821, 4822)] == \
         ["gather", "rows", "rows", "ichunk"]
     assert sorted(kmod.GATHER_KERNELS) == ["gather", "ichunk", "rows"]
     # as in the JAX package, every cohort size has a rung
@@ -438,28 +442,42 @@ def _card_table(n_ind, n_pairs, seed):
 @pytest.mark.parametrize("rung", ["rows", "ichunk"])
 def test_large_cohort_gather_kernels_match_plain_on_the_card(rung):
     # both sides run the EM in f64: nIter and n_used exact, f to f32
-    # rounding; I = 37 with i_chunk 16 leaves a partial last chunk
+    # rounding. pair_em_ichunk: its cluster body at I = 37 (one block) and
+    # at 4,777 (the first cohort of two blocks a cluster), its streamed
+    # body (called directly) with i_chunk 16, which leaves a partial last
+    # chunk; each body shown by its counters
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    gn, sidx, maf = _card_table(37, 3000, seed=3)
-    kern, plain, counter = {
-        "rows": (kmod.pair_em_rows, kmod.pair_em_rows_ref, "LAUNCHES_ROWS"),
-        "ichunk": (lambda *a: kmod.pair_em_ichunk(*a, i_chunk=16),
-                   lambda *a: kmod.pair_em_ichunk_ref(*a, i_chunk=16),
-                   "LAUNCHES_ICHUNK")}[rung]
-    for ignore_miss in (False, True):
-        n0 = getattr(kmod, counter)
-        fk, itk, nuk = (t.cpu().numpy() for t in
-                        kern(gn, sidx, maf, ignore_miss))
-        assert getattr(kmod, counter) == n0 + 1
-        fp, itp, nup = (t.cpu().numpy() for t in
-                        plain(gn, sidx, maf, ignore_miss))
-        np.testing.assert_array_equal(nuk, nup)
-        np.testing.assert_array_equal(itk, itp)
-        np.testing.assert_array_equal(np.isnan(fk), np.isnan(fp))
-        nan = np.isnan(fk)
-        np.testing.assert_allclose(np.where(nan, 0, fk), np.where(nan, 0, fp),
-                                   rtol=0, atol=1e-6)
+    cases = [(37, 3000, False)]
+    if rung == "ichunk":
+        assert kmod.ichunk_cluster(4777, 4, "cuda") == 2
+        cases += [(4777, 40, False), (37, 3000, True)]
+    for n_ind, n_pairs, streamed in cases:
+        gn, sidx, maf = _card_table(n_ind, n_pairs, seed=3)
+        ichunk = kmod._pair_em_ichunk_stream if streamed \
+            else kmod.pair_em_ichunk
+        kern, plain, counter = {
+            "rows": (kmod.pair_em_rows, kmod.pair_em_rows_ref,
+                     "LAUNCHES_ROWS"),
+            "ichunk": (lambda *a: ichunk(*a, i_chunk=16),
+                       lambda *a: kmod.pair_em_ichunk_ref(*a, i_chunk=16),
+                       "LAUNCHES_ICHUNK")}[rung]
+        for ignore_miss in (False, True):
+            n0 = getattr(kmod, counter)
+            s0 = kmod.LAUNCHES_ICHUNK_STREAM
+            fk, itk, nuk = (t.cpu().numpy() for t in
+                            kern(gn, sidx, maf, ignore_miss))
+            assert getattr(kmod, counter) == n0 + 1
+            assert kmod.LAUNCHES_ICHUNK_STREAM == s0 + streamed
+            fp, itp, nup = (t.cpu().numpy() for t in
+                            plain(gn, sidx, maf, ignore_miss))
+            np.testing.assert_array_equal(nuk, nup)
+            np.testing.assert_array_equal(itk, itp)
+            np.testing.assert_array_equal(np.isnan(fk), np.isnan(fp))
+            nan = np.isnan(fk)
+            np.testing.assert_allclose(np.where(nan, 0, fk),
+                                       np.where(nan, 0, fp), rtol=0,
+                                       atol=1e-6)
 
 
 @pytest.mark.gpu
