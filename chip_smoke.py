@@ -46,23 +46,38 @@ Phases, each printing its result and seconds on its own line:
      both kernels on the same 64 tiles at cohort sizes up to and past the
      resident kernel's shared-memory limit, where the wrapper must refuse
      it
-  3d. the gather kernels' design: the SASS of the lane-group kernel
-     (rows staged as floats and as doubles), the cluster body and the
-     streamed body; pair_em_gather at the gather cell for G = 4, 8, 16, 32
-     lanes a pair and both slot types, with the lane-use model of each
-     layout read from the kernel's own n_iter; the cluster body at 2,048 x
-     20,000 for several cluster sizes and block widths, and at I = 256 for
-     the cost of a cluster iteration; two launches held bit-equal; edge
-     cases through both kernels against their plain versions (one pair,
-     part-filled blocks, I = 1, 37, 100, both sides of every change of the
-     group size, the gather rung's design limit and its refusal one past
-     it, cluster sizes 1, 2, 8 and one past the cluster's capacity through
-     the streamed body, x = 0 pairs, --ignore_miss_data, f64 tables); the
-     ladder's crossovers, gather against rows and rows against the cluster
-     body, at 16,384 and 524,288 pairs
+  3d. the gather kernels' design: the SASS (instructions of the EM inner
+     loop by class, registers) of the lane-group kernel, the rows kernel,
+     the cluster body and the streamed body; pair_em_gather at the gather
+     cell for G = 4, 8, 16, 32 lanes a pair, with the lane-use model of
+     each layout read from the kernel's own n_iter; pair_em_rows for every
+     block width (64-512 threads) at 2,048 x 4,000 and at 524,288 pairs of
+     800-9,642 individuals (f32) and 300 and 2,048 (f64), with its blocks
+     an SM; the slowest pair of the 2,048 x 4,000 cell launched alone (one
+     pair's iteration latency), the cell's nIter histogram and that pair's
+     share of the cell's time; the cluster body at 2,048 x 20,000 for
+     several cluster sizes and block widths, and at I = 256 for the cost of
+     a cluster iteration; two launches held bit-equal; edge cases through
+     the three kernels against their plain versions (one pair, part-filled
+     blocks, I = 1, 37, 100, both sides of every change of the group size
+     and of the rows kernel's width, the gather rung's design limit and its
+     refusal one past it, the rows kernel at I = 1, 37 and 100, the rows
+     rung's first cohorts on the default block (f32 and f64) and its
+     ceilings, with the refusal one past each, cluster sizes 1, 2, 8
+     and one past the cluster's capacity through the streamed body, x = 0
+     pairs, --ignore_miss_data, f64 tables); the ladder's crossovers,
+     gather against rows and rows against the cluster body (at its rule's
+     C and at C = 1 and 2), f32 and f64, at 16,384 and 524,288 pairs; the
+     lane groups against rows at 8,192-524,288 random pairs and on the
+     band planner's blocks of 16,384-65,536 pairs, on both sides of their
+     switch
   4. the slice vs the strict oracle: the port's CLI on the card against
      --engine strict, 24 x 2,000 fixture, four flag variants, each
-     through the gather sweep and through the strip sweep; the gz-text
+     through the gather sweep (one block below the lane groups' least
+     pair count: one launch, of the kernel the ladder picks) and through
+     the strip sweep; the same four on a 128-SNP band, whose block the
+     ladder gives to the lane groups (launches equal to the planned
+     blocks, a row sample against strict recomputes); the gz-text
      run through the streamed text loader byte-equal to the run through
      strict.read_geno; plus a 12 x 384 all-pairs fixture with flat and
      compact strip emission, byte-equal
@@ -78,8 +93,14 @@ Phases, each printing its result and seconds on its own line:
      streamed loader; once dense (--max_snp_dist 128: the strip sweep with
      the streamed kernel) and once sampled (--rnd_sample 0.1: the gather
      sweep on the ichunk rung), then 2,048 x 4,000 sampled (the rows
-     rung); each run's kernel shown by its launch count, a row sample
-     against strict recomputes, the stage split with the upload's share
+     rung), then 8,192 sites x 1,000 individuals, a 2,048-SNP band sampled
+     at 0.05 (733,628 pairs: the rows rung on one full --chunk_pairs block
+     of 524,288 and part of a second); each run's kernel shown by its
+     launch count (equal to the planned blocks on the gather sweep), a row
+     sample against strict recomputes, the stage split with the upload's
+     share; then pair_em_rows alone on the last run's first planned block,
+     timed, against its bound and, on every 32nd pair, against its plain
+     version
   6. device idle share: the phase 5 strip run under torch.profiler; busy
      time is the union of the trace's device intervals
 
@@ -92,6 +113,7 @@ for the whole run: the port imports neither.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -114,6 +136,14 @@ PANEL_I = 512                    # simulated panel, tiled to a large cohort
 BIG_I, ROWS_I, BIG_P = 20_000, 4_000, 2_048   # the large-cohort gather cells
 BIG_STRIP_S = 1_024              # streamed strip cell: 36 all-pairs tiles
 BIG_S = 2_048                    # large-cohort CLI runs: sites
+# the rows rung through the CLI on full default blocks: the panel tiled to
+# FULL_I individuals, FULL_S sites, a band and sampling rate that fill one
+# --chunk_pairs block and part of a second
+FULL_I, FULL_S, FULL_BAND, FULL_RATE = 1_000, 8_192, 2_048, 0.05
+# phase 4's wide band: its one block of the 24 x 2,000 fixture (about
+# 248,000 pairs, 124,000 sampled) reaches the lane groups
+SLICE_BAND = 128
+ROWS_FULL_STRIDE = 32            # pairs of that block held against plain
 ENGINE_TAG = "(torch, cuda"        # the engine's device in its config echo
 F32_TOL, F64_TOL = 1e-6, 1e-12   # kernel vs plain: f's output rounding
 R2P_TOL = 2e-5                   # strip kernel's in-kernel Pearson r2
@@ -559,6 +589,15 @@ def _tiled_panel(n_sites, n_ind, seed, device):
     return gn, eg, maf
 
 
+def _random_pairs(n_pairs, seed, n_sites=4_096):
+    """(2, n_pairs) int32 random pairs of n_sites sites, on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack([rng.integers(0, n_sites, n_pairs),
+                                      rng.integers(0, n_sites, n_pairs)])
+                            .astype(np.int32)).to("cuda")
+
+
 def _gather_bound(gn, sidx, maf, n_iter):
     """Bytes once (table, index, MAFs in; three outputs out) and the f64
     flops of the updates this data needs."""
@@ -612,9 +651,10 @@ def phase_kernel_large(card, gather=True, strip=True):
     dev = torch.device("cuda", 0)
     report = {}
     print(f"  shared memory a block may use: {smem_limits(dev)} bytes (default,"
-          f" opt-in); ladder: I = 100 -> {pmod.pick_gather_kernel(100, 4, dev)}"
-          f", {ROWS_I} -> {pmod.pick_gather_kernel(ROWS_I, 4, dev)}, {BIG_I} "
-          f"-> {pmod.pick_gather_kernel(BIG_I, 4, dev)}; strip streamed at "
+          f" opt-in); ladder at {MAIN_P} pairs: I = 100 -> "
+          f"{pmod.pick_gather_kernel(100, 4, dev, MAIN_P)}, {ROWS_I} -> "
+          f"{pmod.pick_gather_kernel(ROWS_I, 4, dev, MAIN_P)}, {BIG_I} -> "
+          f"{pmod.pick_gather_kernel(BIG_I, 4, dev, MAIN_P)}; strip streamed at "
           f"I = 100: {smod.strip_streamed(100, dev)}, at {BIG_I}: "
           f"{smod.strip_streamed(BIG_I, dev)}")
     if gather:
@@ -719,13 +759,10 @@ def _gather_cells_big(card, report):
     from ngsld_tpu_torch.kernels import pair_em as pmod
     dev = torch.device("cuda", 0)
     # ---- the large-cohort gather cells: a tiled panel, 2,048 random pairs
-    rng = np.random.default_rng(5)
-    pairs = np.stack([rng.integers(0, 4_096, BIG_P),
-                      rng.integers(0, 4_096, BIG_P)]).astype(np.int32)
-    sidx = torch.from_numpy(pairs).to(dev)
+    sidx = _random_pairs(BIG_P, 5)
     for name, n_ind in (("rows", ROWS_I), ("ichunk", BIG_I)):
         gn, _, maf = _tiled_panel(4_096, n_ind, 3, dev)
-        rung = pmod.pick_gather_kernel(n_ind, 4, dev)
+        rung = pmod.pick_gather_kernel(n_ind, 4, dev, BIG_P)
         if rung != name:
             raise AssertionError(f"ladder gives {rung} at I = {n_ind}")
         kern_fn = (pmod.pair_em_rows if name == "rows" else _ichunk_cluster)
@@ -1044,13 +1081,27 @@ def phase_strip_design(card):
 # (source, kernel, a part of its mangled name): the f32-table instances
 # built without --ignore_miss_data, the ones the timed cells run
 GATHER_KERNELS_SASS = (("pair_em", "pair_em_kernel", "IfLb0E"),
+                       ("pair_em_rows", "pair_em_rows_kernel", "IfLb0E"),
                        ("pair_em_ichunk", "pair_em_cluster_kernel", "IfLb0E"),
                        ("pair_em_ichunk", "pair_em_ichunk_kernel", "IfLb0E"))
 GROUPS = (4, 8, 16, 32)          # lane groups timed at the gather cell
-X_GATHER_ROWS = (100, 400, 600, 700, 800, 1_200, 2_048, 4_000)   # crossovers
+# pair_em_rows' widths, timed at (pairs, cohort, table itemsize)
+ROWS_WIDTHS = (64, 128, 256, 512)
+ROWS_SWEEP = ((BIG_P, ROWS_I, 4), (MAIN_P, 800, 4), (MAIN_P, 1_200, 4),
+              (MAIN_P, 4_000, 4), (MAIN_P, 6_000, 4), (MAIN_P, 9_642, 4),
+              (MAIN_P, 300, 8), (MAIN_P, 2_048, 8))
+# crossovers: gather against rows, and rows against the cluster body
+X_GATHER_ROWS = (100, 400, 500, 550, 600, 800, 1_000, 1_200, 2_048, 4_000)
 # f64 tables: the lane groups' slots fit to 2,421 individuals
-X_GATHER_ROWS_F64 = (100, 200, 300, 400, 500, 600, 700, 800, 1_200, 2_048)
-X_ROWS_ICHUNK = (4_000, 8_000, 9_642, 12_000)
+X_GATHER_ROWS_F64 = (100, 200, 250, 300, 400, 800, 2_048)
+X_ROWS_ICHUNK = (4_000, 5_000, 6_000, 8_000, 9_642, 12_000)
+X_ROWS_ICHUNK_F64 = (2_048, 3_000, 4_000, 4_821, 6_000)
+# the lane groups / rows switch by pair count, at cohorts on both sides
+X_PAIRS = (8_192, 16_384, 32_768, 65_536, MAIN_P)
+X_PAIRS_I = ((100, 4), (400, 4), (500, 4), (200, 8), (250, 8))
+# the same switch on the planner's banded blocks (--max_snp_dist, the band
+# of phase 5b's runs)
+X_BANDED, X_BAND = (16_384, 32_768, 65_536), 128
 # pairs of the crossover cells: a sampled large-cohort block and the
 # gather sweep's default block (--chunk_pairs)
 X_P = (16_384, MAIN_P)
@@ -1120,10 +1171,7 @@ def _cluster_sweep(card):
     from ngsld_tpu_torch.kernels import pair_em as pmod
     from ngsld_tpu_torch.kernels.build import get_library
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(5)
-    pairs = np.stack([rng.integers(0, 4_096, BIG_P),
-                      rng.integers(0, 4_096, BIG_P)]).astype(np.int32)
-    sidx = torch.from_numpy(pairs).to(dev)
+    sidx = _random_pairs(BIG_P, 5)
     lib = get_library("pair_em_ichunk")
 
     def active(n_ind, c, t):
@@ -1168,6 +1216,107 @@ def _cluster_sweep(card):
     del sidx
 
 
+def _rows_resident(n_ind, esz, dev, threads, regs):
+    """pair_em_rows blocks an SM holds at a width: the package's count (by
+    shared memory and threads), then by the SM's 65,536 registers."""
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    return min(pmod.rows_pairs_sm(n_ind, esz, dev, threads),
+               65536 // (regs * threads))
+
+
+def _rows_forced(threads):
+    """pair_em_rows at a given block width (a measurement aid)."""
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    return _attr(pmod, "rows_threads", lambda *a, **k: threads)
+
+
+def _rows_sweep(card, sass):
+    """pair_em_rows at each cell of ROWS_SWEEP for every block width: times,
+    blocks an SM, each run held against the rule's launch; two launches of
+    the rule bit-equal. The 2,048-pair cell is phase 3b's (pairs of seed
+    5), the 524,288-pair cells the crossovers' (seed 11)."""
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    regs = sass["pair_em_rows_kernelIfLb0E"]["regs"]
+    out = {}
+    for n_pairs, n_ind, esz in ROWS_SWEEP:
+        sidx = _random_pairs(n_pairs, 5 if n_pairs == BIG_P else 11)
+        gn, _, maf = _tiled_panel(4_096, n_ind, 3 if n_pairs == BIG_P
+                                  else 13, dev)
+        dtype = torch.float32 if esz == 4 else torch.float64
+        gn, maf = gn.to(dtype), maf.to(dtype)
+        tol = F32_TOL if esz == 4 else F64_TOL
+        base = pmod.pair_em_rows(gn, sidx, maf, False)
+        if not _same(base, pmod.pair_em_rows(gn, sidx, maf, False)):
+            raise AssertionError(f"pair_em_rows I={n_ind}: two launches "
+                                 "differ")
+        row = {}
+        for t in ROWS_WIDTHS:
+            with _rows_forced(t):
+                ms, o = _time(lambda: pmod.pair_em_rows(gn, sidx, maf,
+                                                        False))
+            err, _ = _check(o, base, tol, f"T={t}", quiet=True)
+            row[f"T={t}"] = dict(
+                ms=round(ms, 3),
+                blocks_sm=_rows_resident(n_ind, esz, dev, t, regs),
+                bits="equal" if _same(o, base) else f"max|df| {err:.3e}")
+        b_ms = _gather_bound(gn, sidx, maf, base[1])[0]
+        key = f"{esz * 8}-bit P={n_pairs} I={n_ind}"
+        out[key] = dict(row, rule=pmod.rows_threads(n_ind, esz),
+                        bound_ms=round(b_ms, 3))
+        del gn, maf, sidx, base
+    print("  pair_em_rows by block width (ms; blocks an SM from shared "
+          "memory, threads and registers; against the rule's launch, nIter "
+          "and n_used exact): " + json.dumps(out) + f"; {regs} registers a "
+          f"thread; two launches bit-equal [{card}]")
+    return out
+
+
+def _rows_tail(card):
+    """The 2,048 x 4,000 cell of phase 3b: its nIter histogram, its
+    slowest pair launched alone (one pair's iteration latency on an SM of
+    its own) and that pair's share of the cell's time, beside a greedy
+    model of the blocks' schedule in index order."""
+    import heapq
+
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    sidx = _random_pairs(BIG_P, 5)
+    gn, _, maf = _tiled_panel(4_096, ROWS_I, 3, dev)
+    ms_cell, cell = _time(lambda: pmod.pair_em_rows(gn, sidx, maf, False))
+    it = cell[1].cpu().numpy().astype(np.int64)
+    updates = np.minimum(it + 1, 100)
+    slow = int(np.argmax(updates))
+    one = sidx[:, slow:slow + 1].contiguous()
+    ms_one, alone = _time(lambda: pmod.pair_em_rows(gn, one, maf, False))
+    if not _same(alone, tuple(t[slow:slow + 1] for t in cell)):
+        raise AssertionError("the slowest pair alone differs from its run in "
+                             "the cell")
+    # blocks start in index order on the first free slot
+    slots = pmod.rows_pairs_sm(ROWS_I, 4, dev) * \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    ends = [0] * slots
+    for u in updates:
+        heapq.heappush(ends, heapq.heappop(ends) + int(u))
+    makespan = max(ends)
+    hist = np.bincount(updates)
+    print(f"  pair_em_rows f32 P={BIG_P} I={ROWS_I}: cell {ms_cell:.3f} ms; "
+          f"updates a pair (nIter + 1): mean {updates.mean():.3f}, median "
+          f"{np.median(updates):.1f}, p99 {np.percentile(updates, 99):.1f}, "
+          f"max {updates.max()} (pair index {slow}); histogram "
+          + json.dumps({int(k): int(v) for k, v in enumerate(hist) if v})
+          + f"; the slowest pair alone {ms_one:.3f} ms = "
+          f"{ms_one * 1e3 / updates[slow]:.3f} us an iteration, "
+          f"{ms_one / ms_cell:.4f} of the cell; greedy model of {slots} "
+          f"slots: makespan {makespan} iteration-slots against "
+          f"{updates.sum() / slots:.1f} packed [{card}]")
+    del gn, maf, sidx, cell
+    return dict(cell_ms=ms_cell, alone_ms=ms_one, slow_updates=int(
+        updates[slow]))
+
+
 def _gather_case(n_ind, n_pairs, seed, dtype, device):
     """A tiled-panel site table (2% all-missing sites, so x = 0 pairs under
     --ignore_miss_data) of 256 sites and n_pairs random pairs."""
@@ -1187,7 +1336,10 @@ def _edge_cases(card):
     group size and at the gather rung's design limit (one past it is
     refused with both numbers); cluster sizes 1, 2 and 8 and one past the
     cluster's capacity (the streamed body, by its counter); x = 0 pairs;
-    --ignore_miss_data off and on; f64 tables."""
+    --ignore_miss_data off and on; f64 tables. The rows kernel at I = 1,
+    37 and 100 (the cohorts it takes on small blocks), its first cohorts on
+    the default block, both sides of every change of its width and its
+    ceilings (one past each refused with both numbers)."""
     import torch
     from ngsld_tpu_torch.kernels import pair_em as pmod
     dev = torch.device("cuda", 0)
@@ -1219,11 +1371,24 @@ def _edge_cases(card):
     cases += [("cluster", 37, 1), ("cluster", 100, 257),
               ("cluster", sizes[2], 257), ("cluster", sizes[8], 129),
               ("cluster", cap - 1, 64), ("stream", cap, 64)]
+    # the rows rung: its first cohorts (f32, f64), both sides of every
+    # change of its width, its ceilings (one past each refused below)
+    rows_first = {esz: pmod.GATHER_MAX_IND[esz] + 1 for esz in (4, 8)}
+    rows_cap = {esz: pmod.rows_max_ind(esz, dev) for esz in (4, 8)}
+    widths = [(n - 1, n) for n in range(2, rows_cap[4] + 1)
+              if pmod.rows_threads(n) != pmod.rows_threads(n - 1)]
+    cases += [("rows", 1, 1), ("rows", 37, 1_001), ("rows", 100, 4_099),
+              ("rows", rows_first[4], 1), ("rows", rows_first[4], 2_048),
+              ("rows", rows_first[8], 2_048)]
+    cases += [("rows", n, 257) for pair in widths for n in pair]
+    cases += [("rows", rows_cap[8], 64), ("rows", rows_cap[4], 64)]
     n_cases, worst, seen = 0, {4: 0.0, 8: 0.0}, []
     for kind, n_ind, n_pairs in cases:
         for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
             esz = 4 if dtype == torch.float32 else 8
             if kind == "gather" and pmod.gather_group(n_ind, esz, dev) is None:
+                continue
+            if kind == "rows" and n_ind > rows_cap[esz]:
                 continue
             if dtype == torch.float64 and n_ind > 40_000:
                 continue      # the f64 cluster's capacity is half
@@ -1233,6 +1398,12 @@ def _edge_cases(card):
                 if kind == "gather":
                     kern = pmod.pair_em_gather(gn, sidx, maf, ign)
                     plain = pmod.pair_em_gather_ref(gn, sidx, maf, ign)
+                elif kind == "rows":
+                    kern = pmod.pair_em_rows(gn, sidx, maf, ign)
+                    plain = pmod.pair_em_rows_ref(gn, sidx, maf, ign)
+                    if not _same(kern, pmod.pair_em_rows(gn, sidx, maf, ign)):
+                        raise AssertionError(f"rows I={n_ind}: two launches "
+                                             "differ")
                 elif kind == "cluster":
                     kern = _ichunk_cluster(gn, sidx, maf, ign)
                     plain = pmod.pair_em_ichunk_ref(gn, sidx, maf, ign)
@@ -1249,7 +1420,8 @@ def _edge_cases(card):
                 n_cases += 1
             what = (f"G={pmod.gather_group(n_ind, esz, dev)}"
                     if kind == "gather" else
-                    f"C={pmod.ichunk_cluster(n_ind, esz, dev)}")
+                    f"T={pmod.rows_threads(n_ind, esz)}" if kind == "rows"
+                    else f"C={pmod.ichunk_cluster(n_ind, esz, dev)}")
             seen.append(f"{kind} I={n_ind} P={n_pairs} {esz * 8}-bit {what}"
                         f" x0={n_x0}")
             del gn, sidx, maf, kern, plain
@@ -1264,6 +1436,24 @@ def _edge_cases(card):
             raise AssertionError(f"refusal without the numbers: {e}")
     else:
         raise AssertionError(f"pair_em_gather took I = {limit + 1}")
+    # one past the rows rung's ceilings: refused with both numbers
+    for esz, dtype in ((4, torch.float32), (8, torch.float64)):
+        n_ind = rows_cap[esz] + 1
+        gn, sidx, maf = _gather_case(n_ind, 4, 1, dtype, dev)
+        n0 = pmod.LAUNCHES_ROWS
+        try:
+            pmod.pair_em_rows(gn, sidx, maf, False)
+        except ValueError as e:
+            need = pmod.rows_block_smem(n_ind, esz,
+                                        pmod.rows_threads(n_ind, esz, dev))
+            if str(need) not in str(e) or str(pmod.smem_limits(dev)[1]) \
+                    not in str(e) or pmod.LAUNCHES_ROWS != n0:
+                raise AssertionError(f"refusal without the numbers: {e}")
+        else:
+            raise AssertionError(f"pair_em_rows took I = {n_ind}")
+        if pmod.pick_gather_kernel(n_ind, esz, dev, MAIN_P) != "ichunk":
+            raise AssertionError(f"the ladder does not take ichunk at "
+                                 f"I = {n_ind}")
     del gn, sidx, maf
     print(f"  {n_cases} edge cases agree with the plain versions (nIter and "
           f"n_used exact, max|df| f32 {worst[4]:.3e}, f64 {worst[8]:.3e}): "
@@ -1273,7 +1463,73 @@ def _edge_cases(card):
           f"design limit {limit} (I = {limit + 1} refused with both "
           f"numbers); cluster sizes first reached at "
           f"{json.dumps({str(k): v for k, v in sizes.items()})}, "
-          f"capacity {cap - 1} individuals in f32")
+          f"capacity {cap - 1} individuals in f32; rows width steps (last "
+          f"cohort, first cohort) {widths}, rows ceilings {rows_cap[4]} "
+          f"(f32) and {rows_cap[8]} (f64), one past each refused with both "
+          "numbers and sent to ichunk by the ladder")
+
+
+def _banded_pairs(n_pairs, band, n_sites=4_096):
+    """(2, n_pairs) int32 on the card: the first block the band planner
+    (plan.band.iter_pair_blocks) emits over n_sites sites of one contig at
+    --max_snp_dist band, every site kept."""
+    import types
+
+    import torch
+    from ngsld_tpu_torch.plan.band import iter_pair_blocks
+    pars = types.SimpleNamespace(n_sites=n_sites, max_kb_dist=0,
+                                 max_snp_dist=band, min_maf=0.0,
+                                 rnd_sample=1.0, seed=0)
+    blk = next(iter_pair_blocks(pars, np.full(n_sites, 0.5),
+                                np.ones(n_sites), block_pairs=n_pairs))
+    if len(blk.s1) != n_pairs:
+        raise AssertionError(f"banded block of {len(blk.s1)} pairs, asked "
+                             f"{n_pairs}")
+    return torch.from_numpy(np.stack([blk.s1, blk.s2]).astype(np.int32)) \
+        .to("cuda")
+
+
+def _pairs_sweep(card):
+    """pair_em_gather against pair_em_rows at the cohorts X_PAIRS_I for
+    each pair count of X_PAIRS (random pairs of a tiled panel, the
+    crossovers' seeds) and of X_BANDED (the planner's banded blocks), each
+    pair of runs held together."""
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    out = {}
+    blocks = [(f"P={p}", p, functools.partial(_random_pairs, p, 11))
+              for p in X_PAIRS]
+    blocks += [(f"P={p} banded", p, functools.partial(_banded_pairs, p,
+                                                       X_BAND))
+               for p in X_BANDED]
+    for n_ind, esz in X_PAIRS_I:
+        dtype = torch.float32 if esz == 4 else torch.float64
+        gn, _, maf = _tiled_panel(4_096, n_ind, 13, dev)
+        gn, maf = gn.to(dtype), maf.to(dtype)
+        for label, n_pairs, make in blocks:
+            sidx = make()
+            ms_g, g = _time(lambda: pmod.pair_em_gather(gn, sidx, maf, False))
+            ms_r, r = _time(lambda: pmod.pair_em_rows(gn, sidx, maf, False))
+            _check(g, r, F32_TOL if esz == 4 else F64_TOL,
+                   f"I={n_ind} {label}", quiet=True)
+            out[f"{esz * 8}-bit I={n_ind} {label}"] = dict(
+                gather=round(ms_g, 3), rows=round(ms_r, 3),
+                pick=pmod.pick_gather_kernel(n_ind, esz, dev, n_pairs))
+            del sidx, g, r
+        del gn, maf
+    print("  lane groups against rows by pair count (random pairs, and the "
+          f"planner's blocks at band {X_BAND}), ms, and the ladder's pick: "
+          + json.dumps(out) + f" [{card}]")
+    return out
+
+
+def _ichunk_at(blocks, *args, **kw):
+    """pair_em_ichunk's cluster body at `blocks` blocks a cluster (a
+    measurement aid)."""
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    with _attr(pmod, "ichunk_cluster", lambda *a, **k: blocks):
+        return _ichunk_cluster(*args, **kw)
 
 
 def _crossovers(card):
@@ -1287,13 +1543,12 @@ def _crossovers(card):
     dev = torch.device("cuda", 0)
     out = {}
     for n_pairs in X_P:
-        rng = np.random.default_rng(11)
-        sidx = torch.from_numpy(np.stack([rng.integers(0, 4_096, n_pairs),
-                                          rng.integers(0, 4_096, n_pairs)])
-                                .astype(np.int32)).to(dev)
-        cells = [(n, torch.float32) for n in
-                 sorted(set(X_GATHER_ROWS) | set(X_ROWS_ICHUNK))]
-        cells += [(n, torch.float64) for n in X_GATHER_ROWS_F64]
+        sidx = _random_pairs(n_pairs, 11)
+        lists = {4: (X_GATHER_ROWS, X_ROWS_ICHUNK),
+                 8: (X_GATHER_ROWS_F64, X_ROWS_ICHUNK_F64)}
+        cells = [(n, dtype) for dtype, (xg, xi) in
+                 ((torch.float32, lists[4]), (torch.float64, lists[8]))
+                 for n in sorted(set(xg) | set(xi))]
         for n_ind, dtype in cells:
             gn, _, maf = _tiled_panel(4_096, n_ind, 13, dev)
             gn, maf = gn.to(dtype), maf.to(dtype)
@@ -1301,10 +1556,18 @@ def _crossovers(card):
             tol = F32_TOL if esz == 4 else F64_TOL
             row, runs = {}, {}
             fns = {"rows": pmod.pair_em_rows}
-            if n_ind in X_GATHER_ROWS or esz == 8:
+            if n_ind in lists[esz][0]:
                 fns["gather"] = pmod.pair_em_gather
-            if n_ind in X_ROWS_ICHUNK and esz == 4:
-                fns["ichunk"] = _ichunk_cluster
+            if n_ind in lists[esz][1]:
+                # the cluster body at the rule's C, and at C = 1 and 2
+                # where one block an SM holds their slices
+                c_rule = pmod.ichunk_cluster(n_ind, esz, dev)
+                room = pmod._sm_bytes(dev) - pmod._CLUSTER_RESERVED
+                for c in sorted({1, 2, c_rule}):
+                    if c == c_rule or pmod.cluster_smem(n_ind, c,
+                                                        esz) <= room:
+                        fns[f"ichunk C={c}"] = functools.partial(
+                            _ichunk_at, c)
             for name, fn in fns.items():
                 try:
                     ms, runs[name] = _time(lambda: fn(gn, sidx, maf, False))
@@ -1316,9 +1579,8 @@ def _crossovers(card):
             first = next(iter(runs.values()))
             for name, o in runs.items():
                 _check(o, first, tol, f"I = {n_ind} {name}", quiet=True)
-            row["pick"] = pmod.pick_gather_kernel(n_ind, esz, dev)
-            if "ichunk" in fns:
-                row["C"] = pmod.ichunk_cluster(n_ind, esz, dev)
+            row["pick"] = pmod.pick_gather_kernel(n_ind, esz, dev,
+                                                  n_pairs)
             out[f"{esz * 8}-bit P={n_pairs} I={n_ind}"] = row
             del gn, maf, runs, first
         del sidx
@@ -1330,9 +1592,12 @@ def _crossovers(card):
 def phase_gather_design(card):
     sass = _sass_lines(GATHER_KERNELS_SASS)
     _group_sweep(card, sass)
+    _rows_sweep(card, sass)
+    _rows_tail(card)
     _cluster_sweep(card)
     _edge_cases(card)
     _crossovers(card)
+    _pairs_sweep(card)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1373,10 +1638,15 @@ def _read_lines(path):
 def phase_slice(tmp):
     from ngsld_tpu_torch.kernels import pair_em as pmod
     from ngsld_tpu_torch.kernels import strip_em as smod
+
+    def counts():     # the gather sweep's three kernels, the strip kernels
+        return dict(pair_em=pmod.LAUNCHES, pair_em_rows=pmod.LAUNCHES_ROWS,
+                    pair_em_ichunk=pmod.LAUNCHES_ICHUNK,
+                    strip=smod.LAUNCHES + smod.LAUNCHES_STREAM)
     from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
     from ngsld_tpu_torch.utils.simulate import simulate, write_all
-    files = write_all(simulate(n_ind=24, n_sites=2000, seed=7),
-                      os.path.join(tmp, "slice"))
+    sim = simulate(n_ind=24, n_sites=2000, seed=7)
+    files = write_all(sim, os.path.join(tmp, "slice"))
     common = ["--n_ind", "24", "--n_sites", "2000", "--pos", files["pos"],
               "--max_kb_dist", "10", "--min_maf", "0.05", "--extend_out"]
     beagle = ["--geno", files["beagle"], "--probs"]
@@ -1396,10 +1666,9 @@ def phase_slice(tmp):
         s_lines = _read_lines(s_out)
         # each variant through the gather sweep (NGSLD_BLOCK_STRIP=0) and
         # through the strip sweep (=1); --precision auto is f32 on the card
-        for sweep, flag, ran, idle in (("gather", "0", pmod, smod),
-                                       ("strip", "1", smod, pmod)):
+        for sweep, flag in (("gather", "0"), ("strip", "1")):
             r_out = os.path.join(tmp, f"port_{name}_{sweep}.ld")
-            n0, i0 = ran.LAUNCHES, idle.LAUNCHES
+            c0 = counts()
             t0 = time.perf_counter()
             with _env(NGSLD_BLOCK_STRIP=flag):
                 rc, err = _cli(inp + common + ["--out", r_out])
@@ -1409,16 +1678,53 @@ def phase_slice(tmp):
             if ENGINE_TAG not in err:
                 raise AssertionError(f"{name}/{sweep}: engine did not "
                                      f"report a cuda device:\n{err[:2000]}")
-            if ran.LAUNCHES <= n0 or idle.LAUNCHES != i0:
-                raise AssertionError(
-                    f"{name}/{sweep}: launches +{ran.LAUNCHES - n0} of the "
-                    f"{sweep} kernel, +{idle.LAUNCHES - i0} of the other")
             r_lines = _read_lines(r_out)
+            ran = {k: v - c0[k] for k, v in counts().items()}
+            if sweep == "gather":
+                # the run's pairs fill less than one block: one launch, of
+                # the kernel the ladder picks for it
+                n_rows = len(r_lines) - 1
+                want = {k: 0 for k in ran}
+                want[_GATHER_COUNT[pmod.pick_gather_kernel(
+                    24, 4, "cuda:0", n_rows)]] = 1
+                ok = n_rows < MAIN_P and ran == want
+            else:
+                want = "strip kernels only"
+                ok = ran["strip"] >= 1 and sum(ran.values()) == ran["strip"]
+            if not ok:
+                raise AssertionError(f"{name}/{sweep}: launches {ran}, "
+                                     f"expected {want}")
             cmp_vs_strict(s_lines, r_lines, 1000)
             print(f"  {name}/{sweep}: {len(r_lines) - 1} rows, pair set "
                   f"byte-exact, f32 contract held; launches "
-                  f"+{ran.LAUNCHES - n0}; port {t_port:.3f} s, strict "
-                  f"{t_strict:.3f} s")
+                  + json.dumps({k: v for k, v in ran.items() if v})
+                  + f"; port {t_port:.3f} s, strict {t_strict:.3f} s")
+
+    # the same variants on a band wide enough that the one block reaches
+    # the lane groups (GATHER_MIN_PAIRS; the narrow band's block goes to the
+    # rows kernel): pair_em.cu on every variant, a row sample held against
+    # strict recomputes; min_maf 0, so that the plan gives the pair count
+    wide = ["--n_ind", "24", "--n_sites", "2000", "--pos", files["pos"],
+            "--max_kb_dist", "0", "--max_snp_dist", str(SLICE_BAND),
+            "--min_maf", "0", "--extend_out", "--verbose", "0"]
+    for name, inp in variants.items():
+        argv = inp + wide
+        pars, blocks = _plan_blocks(argv, files["pos"], 2000)
+        want = _ladder_launches(24, 4, blocks)
+        if want["pair_em"] != len(blocks):
+            raise AssertionError(f"wide/{name}: blocks of {blocks} pairs do "
+                                 "not all reach the lane groups")
+        sink, wall, launches, _, _ = _counted_run(argv, tmp, sum(blocks),
+                                                  "0")
+        if launches != want:
+            raise AssertionError(f"wide/{name}: launches {launches}, "
+                                 f"expected {want}")
+        n_rows = _sample_vs_strict(sink, sim, pars)
+        print(f"  {name}/gather, band {SLICE_BAND}: {sum(blocks)} rows in "
+              f"{len(blocks)} block(s) of {blocks} pairs, pair_em launches "
+              f"{launches['pair_em']} = blocks, no other kernel; {n_rows} "
+              f"sampled rows within the f32 contract of strict; port "
+              f"{wall:.3f} s")
 
     # the gz-text input through the streamed text loader, and through
     # strict.read_geno (NGSLD_NO_FASTTEXT=1): the same bytes
@@ -1499,20 +1805,39 @@ class _CountingStdout:
         pass
 
 
-def _plan(argv, pos, n_sites):
+def _plan_blocks(argv, pos, n_sites, first=None):
     """The host plan a run must emit at min_maf 0 (the MAF filter passes
-    all): (pars, pairs, gather blocks)."""
+    all): (pars, each gather block's pair count); with a list `first`, the
+    first block is appended to it."""
     from ngsld_tpu_torch.cli import params_from_args
     from ngsld_tpu_torch.plan.band import iter_pair_blocks
     from ngsld_tpu_torch.strict import read_pos
     pars = params_from_args(argv)
     pos_dist, _ = read_pos(pos, False, n_sites)
-    n_pairs = n_blocks = 0
+    sizes = []
     for blk in iter_pair_blocks(pars, np.zeros(n_sites), pos_dist,
                                 block_pairs=pars.chunk_pairs):
-        n_pairs += len(blk.s1)
-        n_blocks += 1
-    return pars, n_pairs, n_blocks
+        if first is not None and not sizes:
+            first.append(blk)
+        sizes.append(len(blk.s1))
+    return pars, sizes
+
+
+def _plan(argv, pos, n_sites):
+    """(pars, pairs, gather blocks) of _plan_blocks."""
+    pars, sizes = _plan_blocks(argv, pos, n_sites)
+    return pars, sum(sizes), len(sizes)
+
+
+def _ladder_launches(n_ind, esz, sizes):
+    """The launches (in _counted_run's keys) a gather sweep over blocks of
+    these pair counts makes: one a block, of the kernel the ladder picks."""
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    want = dict(_NO_LAUNCHES)
+    for n_pairs in sizes:
+        want[_GATHER_COUNT[pmod.pick_gather_kernel(n_ind, esz, "cuda:0",
+                                                   n_pairs)]] += 1
+    return want
 
 
 def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000):
@@ -1555,6 +1880,9 @@ def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000):
 _NO_LAUNCHES = dict(pair_em=0, strip_em=0, pair_em_rows=0, pair_em_ichunk=0,
                     pair_em_ichunk_stream=0,
                     strip_em_stream=0)
+# the ladder's rungs by the name of their launch count
+_GATHER_COUNT = {"gather": "pair_em", "rows": "pair_em_rows",
+                 "ichunk": "pair_em_ichunk"}
 
 
 def _sample_vs_strict(sink, sim, pars):
@@ -1641,11 +1969,15 @@ def phase_real(tmp, card):
     # ---- the gather path, driven again at 10,000 sites of the same
     # fixture, and the strip sweep on the same sites beside it
     argv_c = argv_for(geno_c, pos_c, GATHER_S)
-    pars_c, n_pairs_c, n_blocks_c = _plan(argv_c, pos_c, GATHER_S)
+    pars_c, sizes_c = _plan_blocks(argv_c, pos_c, GATHER_S)
+    n_pairs_c, n_blocks_c = sum(sizes_c), len(sizes_c)
     sink, wall_g, launches, tim, _ = _counted_run(argv_c, tmp, n_pairs_c, "0")
-    if launches != dict(_NO_LAUNCHES, pair_em=n_blocks_c):
+    # every block large enough for the lane groups, so the ladder gives
+    # them all to pair_em.cu
+    want = _ladder_launches(REAL_I, 4, sizes_c)
+    if launches != want or want["pair_em"] != n_blocks_c:
         raise AssertionError(f"launches {launches} for {n_blocks_c} gather "
-                             "blocks")
+                             f"blocks of {sizes_c} pairs; expected {want}")
     n_rows = _sample_vs_strict(sink, cut, pars_c)
     print(f"  gather, {GATHER_S} sites: {n_pairs_c} rows, "
           f"{launches['pair_em']} gather launches = blocks, 0 strip "
@@ -1696,38 +2028,56 @@ def phase_large(tmp, card):
     from ngsld_tpu_torch.utils.simulate import simulate, write_pos
 
     t0 = time.perf_counter()
-    sim = simulate(n_ind=PANEL_I, n_sites=BIG_S, seed=19, contig_kb=500.0)
     d = os.path.join(tmp, "large")
     os.makedirs(d, exist_ok=True)
-    pos = os.path.join(d, "sim.pos")
-    write_pos(sim, pos)
-    glf = {n: os.path.join(d, f"tiled_{n}.glf") for n in (BIG_I, ROWS_I)}
-    for n, path in glf.items():
-        _write_tiled_glf(sim, n, path)
-    print(f"  fixtures written in {time.perf_counter() - t0:.3f} s "
-          f"({os.path.getsize(glf[BIG_I])} and {os.path.getsize(glf[ROWS_I])}"
-          " bytes of doubles)")
+    sims, pos, glf = {}, {}, {}
+    for key, n_sites, seed, cohorts in ((BIG_S, BIG_S, 19, (BIG_I, ROWS_I)),
+                                        (FULL_S, FULL_S, 23, (FULL_I,))):
+        sims[key] = simulate(n_ind=PANEL_I, n_sites=n_sites, seed=seed,
+                             contig_kb=500.0)
+        pos[key] = os.path.join(d, f"sim_{key}.pos")
+        write_pos(sims[key], pos[key])
+        for n in cohorts:
+            glf[n] = os.path.join(d, f"tiled_{key}_{n}.glf")
+            _write_tiled_glf(sims[key], n, glf[n])
+    print(f"  fixtures written in {time.perf_counter() - t0:.3f} s ("
+          + ", ".join(f"{os.path.getsize(p)}" for p in glf.values())
+          + " bytes of doubles)")
 
-    def argv_for(n_ind, extra):
+    def argv_for(n_ind, key, band, extra):
         return ["--geno", glf[n_ind], "--log_scale", "--n_ind", str(n_ind),
-                "--n_sites", str(BIG_S), "--pos", pos, "--max_kb_dist", "0",
-                "--max_snp_dist", "128", "--extend_out", *extra,
+                "--n_sites", str(key), "--pos", pos[key], "--max_kb_dist",
+                "0", "--max_snp_dist", str(band), "--extend_out", *extra,
                 "--verbose", "2"]
 
-    sampled = ["--rnd_sample", "0.1", "--seed", "12345"]
+    def sampled(rate):
+        return ["--rnd_sample", str(rate), "--seed", "12345"]
+
     out = {}
-    for name, n_ind, extra, kernel, per in (
-            ("dense", BIG_I, [], "strip_em_stream", "chunks"),
-            ("sampled", BIG_I, sampled, "pair_em_ichunk", "blocks"),
-            ("rows", ROWS_I, sampled, "pair_em_rows", "blocks")):
-        argv = argv_for(n_ind, extra)
-        pars, n_pairs, _ = _plan(argv, pos, BIG_S)
+    for name, n_ind, key, band, extra, kernel, per in (
+            ("dense", BIG_I, BIG_S, 128, [], "strip_em_stream", "chunks"),
+            ("sampled", BIG_I, BIG_S, 128, sampled(0.1), "pair_em_ichunk",
+             "blocks"),
+            ("rows", ROWS_I, BIG_S, 128, sampled(0.1), "pair_em_rows",
+             "blocks"),
+            # the rows rung on full default blocks
+            ("rows, full blocks", FULL_I, FULL_S, FULL_BAND,
+             sampled(FULL_RATE), "pair_em_rows", "blocks")):
+        argv = argv_for(n_ind, key, band, extra)
+        head = []
+        pars, sizes = _plan_blocks(argv, pos[key], key, first=head)
+        n_pairs, n_blocks = sum(sizes), len(sizes)
+        if name == "rows, full blocks" and n_pairs < pars.chunk_pairs:
+            raise AssertionError(f"{name}: {n_pairs} pairs fill no block of "
+                                 f"{pars.chunk_pairs}")
         sink, wall, launches, tim, err = _counted_run(argv, tmp, n_pairs,
                                                       None, n_keep=200)
         units = tim["counters"]["blocks_computed"]
-        if launches != dict(_NO_LAUNCHES, **{kernel: units}) or units < 1:
+        if launches != dict(_NO_LAUNCHES, **{kernel: units}) or units < 1 \
+                or (per == "blocks" and units != n_blocks):
             raise AssertionError(f"{name}: launches {launches} for {units} "
-                                 f"{per}; expected only {kernel}")
+                                 f"{per} ({n_blocks} planned blocks); "
+                                 f"expected only {kernel}")
         if tim["counters"].get("gl_streamed") != 1 or \
                 "  gl stream+upload" not in tim["phases"] or \
                 "Reading data from file" in tim["phases"]:
@@ -1735,21 +2085,60 @@ def phase_large(tmp, card):
                                  f"the run: {tim['phases']}")
         if (name == "dense") != ("streamed kernel" in err):
             raise AssertionError(f"{name}: wrong sweep:\n{err[-3000:]}")
-        n_rows = _sample_vs_strict(sink, sim, pars)
+        n_rows = _sample_vs_strict(sink, sims[key], pars)
         up, sweep = tim["phases"]["  gl stream+upload"], \
             tim["phases"]["compute: banded pair sweep"]
-        print(f"  {name}, {BIG_S} x {n_ind}: {sink.n_lines - 1} rows, "
-              f"{launches[kernel]} {kernel} launches = {per}, no other "
-              f"kernel, the streamed loader fed the run, {n_rows} sampled "
-              f"rows within the f32 contract of strict")
+        print(f"  {name}, {key} x {n_ind}: {n_pairs} rows (band "
+              f"{band}{', ' + ' '.join(extra[:2]) if extra else ''}), "
+              f"{launches[kernel]} {kernel} launches = {per} (blocks of "
+              f"{pars.chunk_pairs} pairs), no other kernel, the streamed "
+              f"loader fed the run, {n_rows} sampled rows within the f32 "
+              "contract of strict")
         print(f"    wall {wall:.3f} s, {n_pairs / wall:.4e} pairs/s; gl "
               f"stream+upload {up:.3f} s ({up / wall:.4f} of the wall), sweep "
               f"{sweep:.3f} s [{card}]")
         print("    phases: " + json.dumps(tim["phases"]))
         print("    stages: " + json.dumps(tim["stages"]))
         print("    counters: " + json.dumps(tim["counters"]))
-        out[kernel] = launches[kernel]
+        out[name] = launches[kernel]
+        if name == "rows, full blocks":
+            _rows_full_block(head[0], n_ind, key, card)
     return out
+
+
+def _rows_full_block(blk, n_ind, n_sites, card):
+    """pair_em_rows at the full-block leg's shape: that run's first planned
+    block (a full --chunk_pairs block of banded, sampled pairs) over the
+    panel tiled to n_ind individuals. Timed, two launches bit-equal, every
+    ROWS_FULL_STRIDE-th pair held against the plain version (a slice keeps
+    the plain version's run to a second or so)."""
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    sidx = torch.from_numpy(np.stack([blk.s1, blk.s2]).astype(np.int32)) \
+        .to(dev)
+    P = sidx.shape[1]
+    if pmod.pick_gather_kernel(n_ind, 4, dev, P) != "rows":
+        raise AssertionError(f"the ladder does not give {P} x {n_ind} to rows")
+    gn, _, maf = _tiled_panel(n_sites, n_ind, 29, dev)
+    ms, out = _time(lambda: pmod.pair_em_rows(gn, sidx, maf, False))
+    if not _same(out, pmod.pair_em_rows(gn, sidx, maf, False)):
+        raise AssertionError("full block: two launches differ")
+    part = sidx[:, ::ROWS_FULL_STRIDE].contiguous()
+    plain_ms, plain = _time(
+        lambda: pmod.pair_em_rows_ref(gn, part, maf, False), reps=1,
+        warm=False)
+    err, _ = _check(tuple(t[::ROWS_FULL_STRIDE] for t in out), plain,
+                    F32_TOL, f"pair_em_rows full block P={P} I={n_ind}",
+                    quiet=True)
+    b_ms = _gather_bound(gn, sidx, maf, out[1])[0]
+    print(f"  pair_em_rows f32 P={P} I={n_ind} (the full-block leg's first "
+          f"block, banded, sampled; tiled panel): {ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_ms / ms:.4f} of it); two launches bit-equal; "
+          f"{part.shape[1]} pairs (one in {ROWS_FULL_STRIDE}) against the "
+          f"plain version ({plain_ms:.3f} ms): nIter and n_used exact, "
+          f"max|df| {err:.3e} (tol {F32_TOL}) [{card}]")
+    del gn, maf, sidx, out, plain
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1845,11 +2234,11 @@ def main(argv=()) -> int:
         ("strip_em", "strip_em.cu", "pallas_strip.py:58",
          real["strip_launches"], rep["strip"]),
         ("strip_em_stream", "strip_em_stream.cu", "pallas_strip.py:273",
-         large["strip_em_stream"], big["stream"]),
+         large["dense"], big["stream"]),
         ("pair_em_rows", "pair_em_rows.cu", "pallas_em.py:391",
-         large["pair_em_rows"], big["rows"]),
+         large["rows"], big["rows"]),
         ("pair_em_ichunk", "pair_em_ichunk.cu", "pallas_em.py:558",
-         large["pair_em_ichunk"], big["ichunk"])]
+         large["sampled"], big["ichunk"])]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ngsld_tpu_torch/csrc/{src}",

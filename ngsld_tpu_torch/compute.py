@@ -40,9 +40,12 @@ def compute_block(gn: torch.Tensor, eg: torch.Tensor, maf: torch.Tensor,
     """gn (S, I, 3), eg (S, I), maf (S,) device tables; sidx (2, P) int32
     -> fmat (P, 5) = [r2p, f0..f3] in the EM dtype, imat (see _imat).
 
-    The EM kernel follows the cohort size (pick_gather_kernel): one warp
-    per pair while a pair's rows stay in L1, the rows resident in shared
-    memory up to the card's limit, streamed in chunks beyond it."""
+    The EM kernel follows the cohort size and the block's pair count
+    (pick_gather_kernel): lane groups fed from a pair queue for small
+    cohorts on large blocks, one block a pair with both rows in its shared
+    memory up to the card's limit, a pair's rows held across a
+    thread-block cluster beyond it, and streamed in chunks past the
+    cluster's capacity."""
     s1, s2 = sidx[0].long(), sidx[1].long()
     # Pearson r2 is row-wise: slices of pairs keep the two gathered (p, I)
     # operands bounded at large cohorts (one slice at I = 100)
@@ -50,7 +53,8 @@ def compute_block(gn: torch.Tensor, eg: torch.Tensor, maf: torch.Tensor,
     r2p = torch.cat([pearson_r2(eg.index_select(0, s1[i:i + step]),
                                 eg.index_select(0, s2[i:i + step]))
                      for i in range(0, max(len(s1), 1), step)])
-    rung = pick_gather_kernel(gn.shape[1], gn.element_size(), gn.device)
+    rung = pick_gather_kernel(gn.shape[1], gn.element_size(), gn.device,
+                              sidx.shape[1])
     f, n_iter, n_used = GATHER_KERNELS[rung](gn, sidx, maf, ignore_miss_data)
     fmat = torch.cat([r2p[:, None].to(f.dtype), f], dim=1)
     return fmat, _imat(n_iter, n_used, ignore_miss_data, gn.shape[1])

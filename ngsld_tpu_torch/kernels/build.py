@@ -40,7 +40,7 @@ ENTRY_POINTS = {
                _vp, _vp]
         for name in ("ngsld_pair_em_f32", "ngsld_pair_em_f64")},
     "pair_em_rows": {
-        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp]
+        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp]
            for name in ("ngsld_pair_em_rows_f32", "ngsld_pair_em_rows_f64")},
         "ngsld_smem_limits": [_vp]},
     "pair_em_ichunk": {

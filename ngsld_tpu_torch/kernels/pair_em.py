@@ -10,20 +10,23 @@ kernel or raises; on a CPU tensor it runs its plain PyTorch version.
                                            in its group's slot of shared
                                            memory
   pair_em_rows     csrc/pair_em_rows.cu    one block per pair, both rows
-                   (_em_kernel_rows)       resident in shared memory
+                   (_em_kernel_rows)       resident in shared memory, one
+                                           block barrier an iteration
   pair_em_ichunk   csrc/pair_em_ichunk.cu  one cluster of C blocks per pair,
                    (_em_kernel_ichunk)     the rows held across the
                                            cluster's shared memory; past
                                            its capacity one block per pair,
                                            rows streamed per chunk
 
-pick_gather_kernel(n_ind) is the ladder of ngsld_tpu/compute.py:99-117 with
-the card's shared memory in the place of the TPU's VMEM and the switches
-where the card measured them. The launch arithmetic of the gather and
-cluster kernels (group size, slot, cluster size, threads) lives here, so
-that the CPU tests reach it. LAUNCHES, LAUNCHES_ROWS and LAUNCHES_ICHUNK
-count kernel launches, nothing else; LAUNCHES_ICHUNK_STREAM counts the
-launches of pair_em_ichunk that took the streamed body.
+pick_gather_kernel(n_ind, itemsize, device, n_pairs) is the ladder of
+ngsld_tpu/compute.py:99-117 with the card's shared memory in the place of
+the TPU's VMEM and the switches where the card measured them (by cohort
+size and, for the lane groups, by the block's pair count). The launch
+arithmetic of the three kernels (group size, slot, block width, cluster
+size, threads) lives here, so that the CPU tests reach it. LAUNCHES,
+LAUNCHES_ROWS and LAUNCHES_ICHUNK count kernel launches, nothing else;
+LAUNCHES_ICHUNK_STREAM counts the launches of pair_em_ichunk that took the
+streamed body.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ LAUNCHES_ICHUNK_STREAM = 0   # pair_em_ichunk, the streamed body
 # individuals per staged chunk of pair_em_ichunk's streamed body: 2 buffers
 # x 2 rows x 12 bytes x 1,024 = 48 KB of shared memory in f32
 I_CHUNK = 1024
-# shared memory the rows kernel keeps for its reductions (static)
-_ROWS_RESERVED = 1024
+# static shared memory of the streamed body's block (its reductions)
+_STREAM_RESERVED = 1024
 # shared memory the card keeps for itself in every resident block
 _BLOCK_RESERVED = 1024
 
@@ -54,7 +57,17 @@ GATHER_WARPS_SM = 16
 # the gather rung's last cohort size, by table itemsize: the measured
 # crossover with the rows kernel (phase 3d of chip_smoke.py), unless the
 # design limit comes first
-GATHER_MAX_IND = {4: 700, 8: 200}
+GATHER_MAX_IND = {4: 500, 8: 250}
+# the fewest pairs a launch of the gather rung takes, by table itemsize: the
+# smallest block of phase 3d's sweep on which the lane groups won most of
+# their cohorts (the rows kernel most of them on the next smaller block)
+GATHER_MIN_PAIRS = {4: 65_536, 8: 32_768}
+
+# ---- csrc/pair_em_rows.cu: one block a pair
+# warps an SM the block width aims at: the smallest width whose blocks
+# leave this many resident warps
+ROWS_WARPS_SM = 16
+ROWS_THREADS = 512       # the widest block the rule gives
 
 # ---- csrc/pair_em_ichunk.cu, the cluster body
 CLUSTER_MAX = 8          # blocks in a cluster, the portable limit
@@ -113,8 +126,51 @@ def _check(gn, sidx, maf):
 
 
 def rows_smem_bytes(n_ind: int, itemsize: int = 4) -> int:
-    """Dynamic shared memory pair_em_rows needs: both rows of a pair."""
+    """Both rows of a pair: 6 I table values."""
     return 2 * 3 * n_ind * itemsize
+
+
+def rows_block_smem(n_ind: int, itemsize: int = 4,
+                    threads: int = ROWS_THREADS) -> int:
+    """Dynamic shared memory of a pair_em_rows block: two slots of the
+    warps' four sums (64 bytes a warp), then both rows."""
+    return 2 * threads + rows_smem_bytes(n_ind, itemsize)
+
+
+def rows_max_ind(itemsize: int = 4, device="cpu") -> int:
+    """The rows rung's ceiling: the largest cohort whose block at
+    ROWS_THREADS fits the opt-in shared memory (9,642 individuals in f32,
+    4,821 in f64 on an H100)."""
+    return (smem_limits(device)[1] - rows_block_smem(0)) // rows_smem_bytes(
+        1, itemsize)
+
+
+def _rows_blocks_smem(n_ind: int, itemsize: int, device, threads: int) -> int:
+    """pair_em_rows blocks an SM's shared memory holds: each its own and
+    the card's reserve of a block."""
+    return _sm_bytes(device) // (rows_block_smem(n_ind, itemsize, threads)
+                                 + _BLOCK_RESERVED)
+
+
+def rows_threads(n_ind: int, itemsize: int = 4, device="cpu") -> int:
+    """Threads of a pair_em_rows block: the smallest power of two from 64
+    to ROWS_THREADS whose blocks, as many as an SM's shared memory holds,
+    leave ROWS_WARPS_SM warps an SM."""
+    t = 64
+    while t < ROWS_THREADS and \
+            rows_pairs_sm(n_ind, itemsize, device, t) * t < ROWS_WARPS_SM * 32:
+        t *= 2
+    return t
+
+
+def rows_pairs_sm(n_ind: int, itemsize: int = 4, device="cpu",
+                  threads: int | None = None) -> int:
+    """pair_em_rows blocks (one pair each) an SM holds at once at a block
+    width: by its shared memory and by the SM's 2,048 threads; at most
+    32."""
+    threads = threads or rows_threads(n_ind, itemsize, device)
+    return min(32, _rows_blocks_smem(n_ind, itemsize, device, threads),
+               2048 // threads)
 
 
 def _sm_bytes(device) -> int:
@@ -201,28 +257,33 @@ def cluster_threads(n_ind: int, blocks: int, itemsize: int = 4) -> int:
     return t
 
 
-def pick_gather_kernel(n_ind: int, itemsize: int = 4,
-                       device: torch.device | str = "cpu") -> str:
-    """Which gather kernel runs a cohort of n_ind: "gather", "rows" or
-    "ichunk".
+def pick_gather_kernel(n_ind: int, itemsize: int,
+                       device: torch.device | str, n_pairs: int) -> str:
+    """Which gather kernel runs a block of n_pairs pairs of a cohort of
+    n_ind: "gather", "rows" or "ichunk".
 
-    pair_em_gather to GATHER_MAX_IND individuals: the last cohort of
-    chip_smoke phase 3d's crossover cells at which it beat the rows kernel
-    on 524,288 random pairs (the sweep's default block) on an H100, 700 for
-    f32 tables (the rows kernel ahead from 800) and 200 for f64 tables
-    (ahead from 300; double slots leave fewer resident warps); or to its
-    design limit where that comes first (a block of two warps with one slot
-    each must fit the opt-in shared memory: 4,842 individuals in f32, 2,421
-    in f64). Then the rows resident in one block's shared memory
-    (pair_em_rows) to the opt-in limit (9,642 individuals in f32), then
-    pair_em_ichunk (rows held across a cluster, streamed past its
-    capacity). On blocks of 16,384 pairs the rows kernel measured ahead at
-    every f32 cohort; the ladder reads the cohort only."""
+    pair_em_gather to GATHER_MAX_IND individuals on blocks of at least
+    GATHER_MIN_PAIRS pairs, or to its design limit where that comes first
+    (a block of two warps with one slot each must fit the opt-in shared
+    memory: 4,842 individuals in f32, 2,421 in f64). The switches are the
+    crossovers of chip_smoke phase 3d with the rows kernel on an H100, on
+    random pairs and on the band planner's blocks alike. At 65,536-524,288
+    pairs the lane groups won to 500 individuals in f32 and 250 in f64
+    (rows ahead from 550 and 300). On smaller blocks the dtypes part: in
+    f32 the rows kernel won two of three cohorts (100, 400; not 500, by
+    2-5%) at 32,768 pairs and all at 16,384; in f64 the lane groups won
+    both cohorts at 32,768 pairs and only 200 of 100, 200, 250 at 16,384.
+    Then pair_em_rows, the rows resident in one block's shared memory, to
+    its ceiling (rows_max_ind: 9,642 individuals in f32, 4,821 in f64),
+    ahead of the cluster body at C = 1 and 2 at every cohort measured but
+    6,000 in f32, where the cluster body's own rule (C = 2, three blocks
+    an SM) led by a few percent; then pair_em_ichunk (rows held across a
+    cluster, streamed past its capacity)."""
     if n_ind <= GATHER_MAX_IND[itemsize] \
+            and n_pairs >= GATHER_MIN_PAIRS[itemsize] \
             and gather_group(n_ind, itemsize, device) is not None:
         return "gather"
-    if rows_smem_bytes(n_ind, itemsize) <= smem_limits(device)[1] \
-            - _ROWS_RESERVED:
+    if n_ind <= rows_max_ind(itemsize, device):
         return "rows"
     return "ichunk"
 
@@ -301,16 +362,18 @@ def pair_em_rows(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
     _check(gn, sidx, maf)
     if _device_kind(gn, "pair-EM rows") == "cpu":
         return pair_em_rows_ref(gn, sidx, maf, ignore_miss_data)
-    need = rows_smem_bytes(gn.shape[1], gn.element_size()) + _ROWS_RESERVED
+    I, esz = gn.shape[1], gn.element_size()
+    threads = rows_threads(I, esz, gn.device)
+    need = rows_block_smem(I, esz, threads)
     limit = smem_limits(gn.device)[1]
     if need > limit:
         raise ValueError(
-            f"pair_em_rows: {gn.shape[1]} individuals need {need} bytes of "
+            f"pair_em_rows: {I} individuals need {need} bytes of "
             f"shared memory, the device allows {limit}; use pair_em_ichunk")
     if sidx.shape[1] == 0:
         return _empty(gn, sidx)
     out = _launch("pair_em_rows", "ngsld_pair_em_rows", gn, sidx, maf,
-                  ignore_miss_data)
+                  ignore_miss_data, pre=(threads,))
     LAUNCHES_ROWS += 1
     return out
 
@@ -381,7 +444,7 @@ def _pair_em_ichunk_stream(gn, sidx, maf, ignore_miss_data,
     tests call it directly to hold the body against its plain version."""
     global LAUNCHES_ICHUNK, LAUNCHES_ICHUNK_STREAM
     esz = gn.element_size()
-    need = 2 * rows_smem_bytes(i_chunk, esz) + _ROWS_RESERVED
+    need = 2 * rows_smem_bytes(i_chunk, esz) + _STREAM_RESERVED
     limit = smem_limits(gn.device)[1]
     if need > limit:
         raise ValueError(

@@ -147,15 +147,18 @@ def test_ladder_takes_the_design_limit_where_it_comes_first(monkeypatch):
     """With the measured switch set past the lane groups' design limit, the
     limit decides: a block of two one-slot warps must fit the opt-in
     shared memory (4,842 individuals as floats, 2,421 as doubles)."""
+    def pick(n_ind, itemsize=4):     # on the sweep's default block
+        return kmod.pick_gather_kernel(n_ind, itemsize, "cpu", 1 << 19)
+
     for itemsize, last in kmod.GATHER_MAX_IND.items():
-        assert kmod.pick_gather_kernel(last, itemsize) == "gather"
-        assert kmod.pick_gather_kernel(last + 1, itemsize) == "rows"
+        assert pick(last, itemsize) == "gather"
+        assert pick(last + 1, itemsize) == "rows"
     monkeypatch.setattr(kmod, "GATHER_MAX_IND", {4: 10 ** 6, 8: 10 ** 6})
-    assert kmod.pick_gather_kernel(4842) == "gather"
-    assert kmod.pick_gather_kernel(4843) == "rows"
-    assert kmod.pick_gather_kernel(2421, 8) == "gather"
-    assert kmod.pick_gather_kernel(2422, 8) == "rows"
-    assert kmod.pick_gather_kernel(9643) == "ichunk"
+    assert pick(4842) == "gather"
+    assert pick(4843) == "rows"
+    assert pick(2421, 8) == "gather"
+    assert pick(2422, 8) == "rows"
+    assert pick(9643) == "ichunk"
 
 
 def _cpu_case(n_ind, n_pairs=6, n_sites=4):

@@ -143,19 +143,26 @@ def test_pick_gather_kernel_follows_the_shared_memory_limits():
     """Rung 1 (lane groups) to GATHER_MAX_IND individuals, where the rows
     kernel overtook it on the card at the gather sweep's 524,288-pair
     block, for each table dtype (or to the lane groups' design limit, where
-    that comes first);
-    rung 2 up to the opt-in limit less the rows kernel's own 1 KB; rung 3
-    beyond; for the CPU the H100's limits stand in."""
+    that comes first), on blocks of at least GATHER_MIN_PAIRS pairs (by
+    dtype); rung 2 up to the opt-in limit less the rows kernel's sum slots;
+    rung 3 beyond; for the CPU the H100's limits stand in."""
     assert smem_limits("cpu") == NOMINAL_SMEM == (49152, 232448)
-    pick = kmod.pick_gather_kernel
-    assert kmod.GATHER_MAX_IND == {4: 700, 8: 200}
-    assert [pick(n) for n in (1, 100, 700)] == ["gather"] * 3
-    assert [pick(n) for n in (701, 2048, 4000, 8000, 9642)] == ["rows"] * 5
+
+    def pick(n_ind, itemsize=4, n_pairs=1 << 19):
+        return kmod.pick_gather_kernel(n_ind, itemsize, "cpu", n_pairs)
+
+    assert kmod.GATHER_MAX_IND == {4: 500, 8: 250}
+    assert [pick(n) for n in (1, 100, 500)] == ["gather"] * 3
+    assert [pick(n) for n in (501, 2048, 4000, 8000, 9642)] == ["rows"] * 5
     assert [pick(n) for n in (9643, 20000, 10 ** 6)] == ["ichunk"] * 3
     # f64 tables: their own measured switch to rows (their slots fit to
     # 2,421 individuals), the rows kernel's limit halves
-    assert [pick(n, 8) for n in (200, 201, 4821, 4822)] == \
+    assert [pick(n, 8) for n in (250, 251, 4821, 4822)] == \
         ["gather", "rows", "rows", "ichunk"]
+    # blocks of fewer than GATHER_MIN_PAIRS pairs skip the lane groups
+    for itemsize, least in kmod.GATHER_MIN_PAIRS.items():
+        assert pick(100, itemsize, least) == "gather"
+        assert pick(100, itemsize, least - 1) == "rows"
     assert sorted(kmod.GATHER_KERNELS) == ["gather", "ichunk", "rows"]
     # as in the JAX package, every cohort size has a rung
     assert jem.pick_pair_tile(2000) is None
@@ -442,13 +449,21 @@ def _card_table(n_ind, n_pairs, seed):
 @pytest.mark.parametrize("rung", ["rows", "ichunk"])
 def test_large_cohort_gather_kernels_match_plain_on_the_card(rung):
     # both sides run the EM in f64: nIter and n_used exact, f to f32
-    # rounding. pair_em_ichunk: its cluster body at I = 37 (one block) and
-    # at 4,777 (the first cohort of two blocks a cluster), its streamed
-    # body (called directly) with i_chunk 16, which leaves a partial last
-    # chunk; each body shown by its counters
+    # rounding. pair_em_rows: also on both sides of every change of its
+    # block width and at its ceiling. pair_em_ichunk: its cluster body at
+    # I = 37 (one block) and at 4,777 (the first cohort of two blocks a
+    # cluster), its streamed body (called directly) with i_chunk 16, which
+    # leaves a partial last chunk; each body shown by its counters
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     cases = [(37, 3000, False)]
+    if rung == "rows":
+        top = kmod.rows_max_ind(4, "cuda")
+        steps = [n for n in range(2, top + 1)
+                 if kmod.rows_threads(n, 4, "cuda")
+                 != kmod.rows_threads(n - 1, 4, "cuda")]
+        cases += [(n, 40, False) for s in steps for n in (s - 1, s)]
+        cases += [(top, 20, False)]
     if rung == "ichunk":
         assert kmod.ichunk_cluster(4777, 4, "cuda") == 2
         cases += [(4777, 40, False), (37, 3000, True)]
