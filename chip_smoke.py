@@ -9,6 +9,7 @@
     python3 chip_smoke.py --gather-only  # the same for the gather kernels:
                                          # phases 1, 2, 3d and the gather
                                          # cells of 3 and 3b
+    python3 chip_smoke.py --ring-only    # the ring alone: phases 1, 2, 7
 
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
@@ -103,6 +104,23 @@ Phases, each printing its result and seconds on its own line:
      version
   6. device idle share: the phase 5 strip run under torch.profiler; busy
      time is the union of the trace's device intervals
+  7. the ring sweep (--ring) on the card, one device: first both strip
+     kernels against their plain versions on ring steps (the partner
+     tables one sub-block's, the band bounds shifted to it: lo negative,
+     hi below 0 and past the sub-block); R1, phase 5's 25k x 100 fixture,
+     all pairs sampled at 1%, through the ring under torch.profiler
+     (strip_em.cu once a ring step) and through the block engine (the
+     gather sweep): the pair set byte-equal, values under the f32
+     contract, a row sample against strict recomputes; wall, stage split,
+     per-step peak device memory, idle share; R2, phase 5b's dense 2,048 x
+     20,000 run through the ring (strip_em_stream.cu once a step, the
+     pair set equal to phase 5b's) and the ring loader's host peak; R3,
+     the same file sampled in f64 (the gather stepper on the ichunk rung)
+     and phase 4's four variants through the ring in f32 (strip stepper)
+     and f64 (gather stepper), each launch of the rung the ladder picks
+     for its piece, against strict; R4, resume by sub-ring from a
+     checkpoint whose later sub-ring was deleted (byte-equal), and the
+     narrow-band auto-route (byte-equal to the block run)
 
 Then one JSON line of per-kernel results and, last, the `ok` line. Any
 failure exits non-zero without those lines; so does a machine without a
@@ -114,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -1780,13 +1799,16 @@ class _CountingStdout:
     """Stands in for sys.stdout: counts the rows the CLI prints and keeps
     the header plus every `keep_every`-th row for a spot check."""
 
-    def __init__(self, keep_every):
+    def __init__(self, keep_every, pairs=False):
         self.buffer = self
         self.keep_every = keep_every
         self.n_lines = 0
         self.n_bytes = 0
         self.kept = []
         self._tail = b""
+        # pairs=True: a digest of every row's first two columns, the pair
+        # set in its order
+        self.pairs = hashlib.sha256() if pairs else None
 
     def write(self, data):
         if isinstance(data, str):
@@ -1798,6 +1820,9 @@ class _CountingStdout:
         for ln in lines:
             if self.n_lines % self.keep_every == 0:
                 self.kept.append(ln.decode())
+            if self.pairs is not None:
+                self.pairs.update(b"\t".join(ln.split(b"\t", 2)[:2])
+                                  + b"\n")
             self.n_lines += 1
         return len(data)
 
@@ -1840,19 +1865,33 @@ def _ladder_launches(n_ind, esz, sizes):
     return want
 
 
-def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000):
-    """One run of the port's CLI with rows to a counting sink, the kernels'
-    launch counts set to 0 just before it and read just after. strip:
-    "1"/"0" forces the sweep, None leaves the engine's auto rule."""
+def _zero_launches():
     from ngsld_tpu_torch.kernels import pair_em as pmod
     from ngsld_tpu_torch.kernels import strip_em as smod
-    timings = os.path.join(tmp, "timings.json")
-    sink = _CountingStdout(keep_every=max(1, n_pairs // n_keep))
-    real_stdout = sys.stdout
-    # the path's counts start here
     pmod.LAUNCHES = pmod.LAUNCHES_ROWS = pmod.LAUNCHES_ICHUNK = 0
     pmod.LAUNCHES_ICHUNK_STREAM = 0
     smod.LAUNCHES = smod.LAUNCHES_STREAM = 0
+
+
+def _read_launches():
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    return dict(pair_em=pmod.LAUNCHES, strip_em=smod.LAUNCHES,
+                pair_em_rows=pmod.LAUNCHES_ROWS,
+                pair_em_ichunk=pmod.LAUNCHES_ICHUNK,
+                pair_em_ichunk_stream=pmod.LAUNCHES_ICHUNK_STREAM,
+                strip_em_stream=smod.LAUNCHES_STREAM)
+
+
+def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000, pairs=False):
+    """One run of the port's CLI with rows to a counting sink, the kernels'
+    launch counts set to 0 just before it and read just after. strip:
+    "1"/"0" forces the sweep, None leaves the engine's auto rule; pairs:
+    the sink keeps a digest of the pair set."""
+    timings = os.path.join(tmp, "timings.json")
+    sink = _CountingStdout(keep_every=max(1, n_pairs // n_keep), pairs=pairs)
+    real_stdout = sys.stdout
+    _zero_launches()    # the path's counts start here
     t0 = time.perf_counter()
     try:
         sys.stdout = sink
@@ -1861,11 +1900,7 @@ def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000):
     finally:
         sys.stdout = real_stdout
     wall = time.perf_counter() - t0
-    launches = dict(pair_em=pmod.LAUNCHES, strip_em=smod.LAUNCHES,  # read
-                    pair_em_rows=pmod.LAUNCHES_ROWS,
-                    pair_em_ichunk=pmod.LAUNCHES_ICHUNK,
-                    pair_em_ichunk_stream=pmod.LAUNCHES_ICHUNK_STREAM,
-                    strip_em_stream=smod.LAUNCHES_STREAM)
+    launches = _read_launches()
     if rc != 0:
         raise AssertionError(f"run rc {rc}\n{err[-4000:]}")
     if sink._tail:
@@ -1883,14 +1918,20 @@ _NO_LAUNCHES = dict(pair_em=0, strip_em=0, pair_em_rows=0, pair_em_ichunk=0,
 # the ladder's rungs by the name of their launch count
 _GATHER_COUNT = {"gather": "pair_em", "rows": "pair_em_rows",
                  "ichunk": "pair_em_ichunk"}
+# the kernels line's names by the name of their launch count
+_RING_COUNT = {"pair_em_gather": "pair_em", "strip_em": "strip_em",
+               "strip_em_stream": "strip_em_stream",
+               "pair_em_rows": "pair_em_rows",
+               "pair_em_ichunk": "pair_em_ichunk"}
 
 
-def _sample_vs_strict(sink, sim, pars):
+def _sample_vs_strict(sink, sim, pars, f64=False):
     """The sink's kept rows (about 1,000, evenly spaced) against strict
-    recomputes of the same pairs, under the f32 column contract."""
+    recomputes of the same pairs, under the f32 column contract (f64: the
+    f64 one, compare)."""
     from ngsld_tpu_torch.io.writer import RowWriter
     from ngsld_tpu_torch.refine import StrictRefiner
-    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
+    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict, compare
     labels = [f"{c}:{p}" for c, p in zip(sim.chrom, sim.pos)]
     site = {lab: i for i, lab in enumerate(labels)}
     rows = sink.kept[1:]
@@ -1906,7 +1947,10 @@ def _sample_vs_strict(sink, sim, pars):
         hap=ref["f"], hmaf1=ref["hmaf1"], hmaf2=ref["hmaf2"],
         chi2=ref["chi2"], n_iter=ref["n_iter"])
     s_lines = [sink.kept[0]] + data.decode().splitlines()
-    cmp_vs_strict(s_lines, sink.kept, 100)
+    if f64:
+        compare(s_lines, sink.kept)
+    else:
+        cmp_vs_strict(s_lines, sink.kept, 100)
     return len(rows)
 
 
@@ -2070,8 +2114,8 @@ def phase_large(tmp, card):
         if name == "rows, full blocks" and n_pairs < pars.chunk_pairs:
             raise AssertionError(f"{name}: {n_pairs} pairs fill no block of "
                                  f"{pars.chunk_pairs}")
-        sink, wall, launches, tim, err = _counted_run(argv, tmp, n_pairs,
-                                                      None, n_keep=200)
+        sink, wall, launches, tim, err = _counted_run(
+            argv, tmp, n_pairs, None, n_keep=200, pairs=name == "dense")
         units = tim["counters"]["blocks_computed"]
         if launches != dict(_NO_LAUNCHES, **{kernel: units}) or units < 1 \
                 or (per == "blocks" and units != n_blocks):
@@ -2101,6 +2145,11 @@ def phase_large(tmp, card):
         print("    stages: " + json.dumps(tim["stages"]))
         print("    counters: " + json.dumps(tim["counters"]))
         out[name] = launches[kernel]
+        if name == "dense":
+            # phase 7's ring leg R2 runs the same file and flags
+            out["dense_run"] = dict(sink=sink, sim=sims[key], argv=argv,
+                                    pars=pars, n_pairs=n_pairs,
+                                    glf=glf[n_ind], pos=pos[key])
         if name == "rows, full blocks":
             _rows_full_block(head[0], n_ind, key, card)
     return out
@@ -2167,6 +2216,446 @@ def phase_idle(tmp, card, real):
     return dict(wall=wall, busy=busy)
 
 
+# ---------------------------------------------------------------- phase 7
+
+RING_RATE = 0.01                 # R1: all pairs of the 25k fixture at 1%
+RING_STEP_PAT = r"==> ring step \(sub-ring \d+, t \d+\): (\d+) rows"
+RING_PEAK_PAT = r"peak device memory (\d+) bytes"
+
+
+def _file_run(argv, out, profile=False):
+    """One run of the port's CLI with rows to the file `out`, the kernels'
+    launch counts set to 0 just before it and read just after. profile:
+    the run under torch.profiler (utils/devtrace.profile_busy). Returns
+    (wall, launches, timings, stderr, (busy, by_cat, by_kernel) or
+    None)."""
+    from ngsld_tpu_torch.utils.devtrace import profile_busy
+    timings = out + ".timings.json"
+    trace = None
+    _zero_launches()    # the path's counts start here
+    with _env(NGSLD_TIMINGS_JSON=timings):
+        if profile:
+            (rc, err), wall, busy, by_cat, by_kernel = profile_busy(
+                lambda: _cli(argv + ["--out", out]))
+            trace = (busy, by_cat, by_kernel)
+        else:
+            t0 = time.perf_counter()
+            rc, err = _cli(argv + ["--out", out])
+            wall = time.perf_counter() - t0
+    launches = _read_launches()
+    if rc != 0:
+        raise AssertionError(f"run rc {rc}\n{err[-4000:]}")
+    with open(timings) as fh:
+        tim = json.load(fh)
+    return wall, launches, tim, err, trace
+
+
+def _ring_pieces(err, chunk):
+    """The gather stepper's pieces, from the log's step lines: each step's
+    live rows cut into pieces of at most `chunk` pairs."""
+    import re
+    pieces = []
+    for m in re.finditer(RING_STEP_PAT, err):
+        c = int(m.group(1))
+        pieces += [chunk] * (c // chunk) + ([c % chunk] if c % chunk else [])
+    return pieces
+
+
+def _ring_strip_check(tim, launches, err, kernel):
+    """A strip-stepper run: one launch of `kernel` a ring step (the log's
+    count), no other kernel."""
+    steps = tim["counters"].get("ring_steps", 0)
+    if "ring: strip-kernel stepper" not in err or steps < 1 or \
+            launches != dict(_NO_LAUNCHES, **{kernel: steps}):
+        raise AssertionError(f"launches {launches} for {steps} ring steps; "
+                             f"expected only {kernel}, once a step\n"
+                             + err[-3000:])
+    return steps
+
+
+def _ring_gather_check(n_ind, esz, chunk, launches, err):
+    """A gather-stepper run: one launch a piece, of the rung the ladder
+    picks for that piece."""
+    pieces = _ring_pieces(err, chunk)
+    want = _ladder_launches(n_ind, esz, pieces)
+    if "ring: gather stepper" not in err or not pieces or launches != want:
+        raise AssertionError(f"launches {launches} for pieces {pieces}; "
+                             f"expected {want}\n" + err[-3000:])
+    return pieces
+
+
+def _ring_bounds(card):
+    """The strip kernels on ring steps, against their plain versions on the
+    same inputs: the anchor tables of the whole block, the partner tables
+    of one sub-block (views of the resident tables), the band bounds
+    shifted to the sub-block's origin, lo = a + 1 - org and hi = hi - org:
+    lo runs negative and hi below 0 (sub-ring 1) and past B_sub (sub-ring
+    0), which the block engine never passes. Every cell: nIter and n_used
+    exact, f within F32_TOL, r2p within R2P_TOL, dead cells at f0."""
+    import torch
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    from ngsld_tpu_torch.plan.strips import TA, TB
+    dev = torch.device("cuda", 0)
+    for n_ind, B, streamed in ((100, 1_024, False), (300, 512, True)):
+        if smod.strip_streamed(n_ind, dev) != streamed:
+            raise AssertionError(f"I = {n_ind}: streamed kernel "
+                                 f"{not streamed}, expected {streamed}")
+        n, B_sub = B - 16, B // 2          # 16 pad sites, two sub-rings
+        gl, eg, maf = _sim_tables(n_ind, n, 31)
+        rng = np.random.default_rng(n_ind)
+        hip = np.zeros(B, np.int64)
+        hip[:n] = np.minimum(np.arange(n) + rng.integers(1, B, n), n)
+        okp = np.zeros(B, np.float32)
+        okp[:n] = rng.random(n) < 0.9
+        f32 = np.float32
+        mafp = np.pad(maf.astype(f32), (0, B - n), constant_values=0.5)
+        gn = torch.from_numpy(np.pad(gl.astype(f32), ((0, B - n), (0, 0),
+                                                      (0, 0)),
+                                     constant_values=1.0 / 3.0)).to(dev)
+        egd = torch.from_numpy(np.pad(eg.astype(f32),
+                                      ((0, B - n), (0, 0)))).to(dev)
+        ga, gb, ea, eb = smod.strip_tables(
+            gn, egd, n_ind, i_align=smod.strip_i_align(n_ind, dev))
+        maf_d, ok_d = torch.from_numpy(mafp).to(dev), \
+            torch.from_numpy(okp).to(dev)
+        nk, nj = B // TA, B_sub // TB
+        ta = np.repeat(np.arange(nk, dtype=np.int32), nj)
+        tb = np.tile(np.arange(nj, dtype=np.int32), nk)
+        for si in (0, 1):
+            org = si * B_sub
+            lo = np.arange(1, B + 1) - org
+            hi = hip - org
+            sl = slice(org, org + B_sub)
+            args = (ga, gb[:, :, sl], ea, eb[:, sl], maf_d, maf_d[sl],
+                    torch.from_numpy(lo.astype(np.int32)).to(dev),
+                    torch.from_numpy(hi.astype(np.int32)).to(dev), ok_d,
+                    ok_d[sl], torch.from_numpy(ta).to(dev),
+                    torch.from_numpy(tb).to(dev))
+            kern = smod.strip_em(*args, n_ind=n_ind)
+            ref = smod.strip_em_stream_ref if streamed else smod.strip_em_ref
+            plain = ref(*args, n_ind=n_ind)
+            A = ta.astype(np.int64)[:, None, None] * TA \
+                + np.arange(TA)[None, :, None]
+            b = tb.astype(np.int64)[:, None, None] * TB \
+                + np.arange(TB)[None, None, :]
+            live = (b >= lo[A]) & (b < hi[A]) & (okp[A] > 0) \
+                & (okp[org + b] > 0)
+            dead = ~live
+            ma = mafp.astype(np.float64)[np.broadcast_to(A, live.shape)[dead]]
+            mb = mafp.astype(np.float64)[
+                org + np.broadcast_to(b, live.shape)[dead]]
+            f0 = np.stack([(1 - ma) * (1 - mb), (1 - ma) * mb,
+                           ma * (1 - mb), ma * mb], axis=1).astype(f32)
+            where = (f"lo down to {lo.min()}, hi {hi[:n].min()}..{hi.max()}"
+                     f" against B_sub {B_sub}")
+            _check_strip(kern, plain, live, f0,
+                         f"{'strip_em_stream' if streamed else 'strip_em'} "
+                         f"ring step I={n_ind}, {len(ta)} tiles, sub-ring "
+                         f"{si} ({where})")
+            if si == 1 and not ((lo < 0).any() and (hi < 0).any()):
+                raise AssertionError("sub-ring 1: no negative bounds")
+            if si == 0 and not (hi > B_sub).any():
+                raise AssertionError("sub-ring 0: no bound past B_sub")
+        del ga, gb, ea, eb, gn, egd
+
+
+def _r1(tmp, card, acc):
+    """R1: the 25k x 100 fixture of phase 5, all pairs sampled at 1%,
+    through the ring (the strip stepper, strip_em.cu once a step) under
+    torch.profiler, and through the block engine (the gather sweep: the
+    sampled plan's effective use is under the strip sweep's threshold)."""
+    import types
+
+    from ngsld_tpu_torch.cli import params_from_args
+    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
+    from ngsld_tpu_torch.utils.simulate import (simulate, write_beagle,
+                                                write_pos)
+    sim = simulate(n_ind=REAL_I, n_sites=REAL_S, seed=17, contig_kb=500.0)
+    d = os.path.join(tmp, "real")
+    os.makedirs(d, exist_ok=True)
+    geno, pos = os.path.join(d, "sim.beagle.gz"), os.path.join(d, "sim.pos")
+    if not (os.path.exists(geno) and os.path.exists(pos)):
+        write_beagle(sim, geno)
+        write_pos(sim, pos)
+    argv = ["--geno", geno, "--probs", "--n_ind", str(REAL_I), "--n_sites",
+            str(REAL_S), "--pos", pos, "--max_kb_dist", "0", "--rnd_sample",
+            str(RING_RATE), "--seed", "1", "--extend_out", "--verbose", "2"]
+    r_out, b_out = os.path.join(d, "ring_r1.ld"), os.path.join(d, "block_r1.ld")
+    wall, launches, tim, err, (busy, by_cat, by_kernel) = _file_run(
+        argv + ["--ring"], r_out, profile=True)
+    steps = _ring_strip_check(tim, launches, err, "strip_em")
+    acc["strip_em"] += launches["strip_em"]
+    if "auto-route" in err:
+        raise AssertionError("R1 auto-routed to the block engine")
+    import re
+    peaks = [int(x) for x in re.findall(RING_PEAK_PAT, err)]
+    plan = [ln.strip() for ln in err.splitlines()
+            if "==> ring:" in ln and "sub-blocks" in ln]
+    wall_b, launches_b, tim_b, err_b, _ = _file_run(argv, b_out)
+    if "strip sweep skipped" not in err_b:
+        raise AssertionError("the block run did not take the gather sweep:\n"
+                             + err_b[-3000:])
+    # the pair set, byte-equal and in order; byte-equal rows hold the
+    # values too, the rest go through cmp_vs_strict
+    n_rows = n_eq = 0
+    diff_r, diff_b, kept = [], [], []
+    with open(r_out, "rb") as fr, open(b_out, "rb") as fb:
+        hdr_r, hdr_b = fr.readline(), fb.readline()
+        if hdr_r != hdr_b:
+            raise AssertionError("R1: headers differ")
+        keep = max(1, tim["counters"]["pairs_emitted"] // 1000)
+        kept.append(hdr_r.decode().rstrip("\n"))
+        for lr, lb in zip(fr, fb):
+            if n_rows % keep == 0:
+                kept.append(lr.decode().rstrip("\n"))
+            n_rows += 1
+            if lr == lb:
+                n_eq += 1
+                continue
+            if lr.split(b"\t", 2)[:2] != lb.split(b"\t", 2)[:2]:
+                raise AssertionError(f"R1: pair {n_rows} differs:\n{lr}\n{lb}")
+            diff_r.append(lr.decode().rstrip("\n"))
+            diff_b.append(lb.decode().rstrip("\n"))
+        if fr.readline() or fb.readline():
+            raise AssertionError("R1: the ring and block outputs differ in "
+                                 "length")
+    if n_rows != tim["counters"]["pairs_emitted"] or n_rows < 1_000_000:
+        raise AssertionError(f"R1: {n_rows} rows, counted "
+                             f"{tim['counters']['pairs_emitted']}")
+    hdr = hdr_r.decode().rstrip("\n")
+    cmp_vs_strict([hdr] + diff_b, [hdr] + diff_r, 0)
+    n_s = _sample_vs_strict(types.SimpleNamespace(kept=kept), sim,
+                            params_from_args(argv))
+    ph, st = tim["phases"], tim["stages"]
+    print(f"  R1 {REAL_S} x {REAL_I}, all pairs at --rnd_sample {RING_RATE}: "
+          f"{plan[0] if plan else ''}; {n_rows} rows; {steps} ring steps = "
+          f"{launches['strip_em']} strip_em launches, no other kernel; pair "
+          f"set byte-equal to the block engine's (gather sweep, "
+          f"{sum(launches_b.values())} launches {json.dumps({k: v for k, v in launches_b.items() if v})}), "
+          f"{n_eq} rows byte-equal, the other {len(diff_r)} within the f32 "
+          f"contract; {n_s} sampled rows within the f32 contract of strict")
+    print(f"    ring wall {wall:.3f} s under torch.profiler "
+          f"({n_rows / wall:.4e} pairs/s), block engine wall {wall_b:.3f} s "
+          f"[{card}]")
+    split = {k: ph.get(k) for k in (
+        "Reading data from file (site-sharded stream)",
+        "Preprocessing (site-sharded) on device",
+        "Sampling plan (taus draws, resident anchors)",
+        "Building strip tables (device)", "compute: ring sweep",
+        "emit: merge + format")}
+    split.update({k: st[k] for k in st if k.startswith("ring:")})
+    split["emit: refine (all)"] = round(sum(
+        v for k, v in st.items() if k.startswith("emit: refine/")), 3)
+    print("    stage split (s): " + json.dumps(split))
+    print(f"    per-step peak device memory (bytes): {peaks}; max "
+          f"{max(peaks) if peaks else 'n/a'}")
+    em = sum(v for k, v in by_kernel.items() if "strip_em_kernel" in k)
+    print(f"    device busy {busy:.6f} s (union of intervals), idle share "
+          f"{1 - busy / wall:.6f}; strip_em_kernel {em:.6f} s")
+    print("    device s by category: " + json.dumps(by_cat))
+    print("    block engine phases: " + json.dumps(tim_b["phases"]))
+    print("    ring counters: " + json.dumps(tim["counters"]))
+    if not em > 0:
+        raise AssertionError("no strip_em_kernel interval in the trace")
+
+
+def _dense_run(tmp):
+    """Phase 5b's dense run alone (its fixture and flags), for --ring-only."""
+    from ngsld_tpu_torch.utils.simulate import simulate, write_pos
+    d = os.path.join(tmp, "large")
+    os.makedirs(d, exist_ok=True)
+    sim = simulate(n_ind=PANEL_I, n_sites=BIG_S, seed=19, contig_kb=500.0)
+    pos = os.path.join(d, f"sim_{BIG_S}.pos")
+    glf = os.path.join(d, f"tiled_{BIG_S}_{BIG_I}.glf")
+    write_pos(sim, pos)
+    _write_tiled_glf(sim, BIG_I, glf)
+    argv = ["--geno", glf, "--log_scale", "--n_ind", str(BIG_I), "--n_sites",
+            str(BIG_S), "--pos", pos, "--max_kb_dist", "0", "--max_snp_dist",
+            "128", "--extend_out", "--verbose", "2"]
+    pars, sizes = _plan_blocks(argv, pos, BIG_S)
+    sink, _, launches, _, _ = _counted_run(argv, tmp, sum(sizes), None,
+                                           n_keep=200, pairs=True)
+    if launches != dict(_NO_LAUNCHES, strip_em_stream=1):
+        raise AssertionError(f"dense block run: launches {launches}")
+    return dict(sink=sink, sim=sim, argv=argv, pars=pars,
+                n_pairs=sum(sizes), glf=glf, pos=pos)
+
+
+def _r2_r3(tmp, card, dense, acc):
+    """R2: phase 5b's dense run (2,048 x 20,000 binary, band 128) through
+    the ring (strip_em_stream.cu); R3: the same file sampled at 0.1 in f64
+    (the gather stepper, the ichunk rung)."""
+    import torch
+
+    from ngsld_tpu_torch.cli import params_from_args
+    from ngsld_tpu_torch.loaders import _ring_sharded_tables
+    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
+    from ngsld_tpu_torch.utils.logging import RunLog
+    argv = dense["argv"] + ["--ring", "--ring_sub", "2"]
+    pars = params_from_args(argv)
+    # the ring loader alone, under tracemalloc: its host peak
+    import tracemalloc
+    B = -(-BIG_S // 256) * 256
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    try:
+        gl, raw = _ring_sharded_tables(pars, 1, B, B, np.float32, RunLog(0),
+                                       torch.device("cuda", 0))
+        torch.cuda.synchronize()
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    t_load = time.perf_counter() - t0
+    size = os.path.getsize(dense["glf"])
+    del gl
+    if not raw or not peak < size:
+        raise AssertionError(f"ring loader: raw {raw}, host peak {peak} of a "
+                             f"{size}-byte file")
+    print(f"  R2 ring loader, {BIG_S} x {BIG_I} binary ({size} bytes): host "
+          f"peak {peak} bytes (tracemalloc), {t_load:.3f} s [{card}]")
+    sink, wall, launches, tim, err = _counted_run(
+        argv, tmp, dense["n_pairs"], None, n_keep=200, pairs=True)
+    steps = _ring_strip_check(tim, launches, err, "strip_em_stream")
+    acc["strip_em_stream"] += launches["strip_em_stream"]
+    if steps != 2 or sink.pairs.digest() != dense["sink"].pairs.digest():
+        raise AssertionError(f"R2: {steps} steps; pair set equal to the "
+                             "block run's: "
+                             f"{sink.pairs.digest() == dense['sink'].pairs.digest()}")
+    cmp_vs_strict(dense["sink"].kept, sink.kept, 100)
+    n_s = _sample_vs_strict(sink, dense["sim"], pars)
+    print(f"  R2 {BIG_S} x {BIG_I}, band 128, --ring_sub 2: {sink.n_lines - 1} "
+          f"rows, {steps} strip_em_stream launches = ring steps, no other "
+          f"kernel; pair set byte-equal to phase 5b's dense block run, its "
+          f"{len(sink.kept) - 1} kept rows within the f32 contract of the "
+          f"block run's, {n_s} within that of strict; wall {wall:.3f} s "
+          f"[{card}]")
+    print("    phases: " + json.dumps(tim["phases"]))
+    print("    stages: " + json.dumps(tim["stages"]))
+
+    # R3: sampled, f64, the gather stepper
+    argv3 = dense["argv"] + ["--rnd_sample", "0.1", "--seed", "12345",
+                             "--precision", "f64", "--ring", "--ring_sub",
+                             "2"]
+    pars3, sizes = _plan_blocks(argv3, dense["pos"], BIG_S)
+    sink, wall, launches, tim, err = _counted_run(argv3, tmp, sum(sizes),
+                                                  None, n_keep=200)
+    pieces = _ring_gather_check(BIG_I, 8, pars3.chunk_pairs, launches, err)
+    if launches["pair_em_ichunk"] < 1:
+        raise AssertionError(f"R3: no ichunk launch: {launches}")
+    for k in acc:
+        acc[k] += launches.get(k, 0)
+    n_s = _sample_vs_strict(sink, dense["sim"], pars3, f64=True)
+    print(f"  R3 {BIG_S} x {BIG_I}, --rnd_sample 0.1, f64: {sink.n_lines - 1} "
+          f"rows in pieces {pieces}, launches "
+          + json.dumps({k: v for k, v in launches.items() if v})
+          + f" (the ladder's rung for each piece); {n_s} sampled rows under "
+          f"the f64 contract of strict; wall {wall:.3f} s [{card}]")
+
+
+def _slice_files(tmp):
+    from ngsld_tpu_torch.utils.simulate import simulate, write_all
+    d = os.path.join(tmp, "slice")
+    files = dict(glf=os.path.join(d, "sim.glf"),
+                 beagle=os.path.join(d, "sim.beagle.gz"),
+                 pos=os.path.join(d, "sim.pos"))
+    if not all(os.path.exists(p) for p in files.values()):
+        files = write_all(simulate(n_ind=24, n_sites=2000, seed=7), d)
+    return files
+
+
+def _r3_slice_r4(tmp, card, acc):
+    """R3 on phase 4's 24 x 2,000 fixture (its four flag variants through
+    the ring, f32 on the strip stepper and f64 on the gather stepper),
+    then R4: resume by sub-ring, and the narrow-band auto-route."""
+    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict, compare
+    files = _slice_files(tmp)
+    common = ["--n_ind", "24", "--n_sites", "2000", "--pos", files["pos"],
+              "--max_kb_dist", "10", "--min_maf", "0.05", "--extend_out",
+              "--verbose", "2"]
+    beagle = ["--geno", files["beagle"], "--probs"]
+    variants = {
+        "default": beagle,
+        "ignore_miss_data": beagle + ["--ignore_miss_data"],
+        "rnd_sample": beagle + ["--rnd_sample", "0.5", "--seed", "12345"],
+        "binary": ["--geno", files["glf"], "--log_scale"],
+    }
+    ring = ["--ring", "--ring_sub", "2"]
+    d = os.path.join(tmp, "ring_slice")
+    os.makedirs(d, exist_ok=True)
+    for name, inp in variants.items():
+        s_out = os.path.join(d, f"strict_{name}.ld")
+        rc, err = _cli(inp + common + ["--engine", "strict", "--out", s_out])
+        if rc != 0:
+            raise AssertionError(f"{name}: strict rc {rc}\n{err}")
+        s_lines = _read_lines(s_out)
+        out32, out64 = (os.path.join(d, f"ring_{name}_{p}.ld")
+                        for p in ("f32", "f64"))
+        _, l32, tim, err, _ = _file_run(inp + common + ring, out32)
+        steps = _ring_strip_check(tim, l32, err, "strip_em")
+        cmp_vs_strict(s_lines, _read_lines(out32), 1000)
+        _, l64, _, err, _ = _file_run(inp + common + ring + ["--precision",
+                                                              "f64"], out64)
+        pieces = _ring_gather_check(24, 8, 1 << 19, l64, err)
+        compare(s_lines, _read_lines(out64))
+        for k in acc:
+            acc[k] += l32.get(k, 0) + l64.get(k, 0)
+        print(f"  R3 24 x 2,000 {name}: {len(s_lines) - 1} rows; f32 "
+              f"{steps} strip_em launches = ring steps, f32 contract of "
+              f"strict; f64 pieces {pieces}, launches "
+              + json.dumps({k: v for k, v in l64.items() if v})
+              + ", f64 contract of strict")
+
+    # R4: a checkpointed ring, the later sub-ring's files deleted, resumed
+    ck = os.path.join(d, "ck")
+    o1, o2 = os.path.join(d, "ck1.ld"), os.path.join(d, "ck2.ld")
+    argv = beagle + common + ring + ["--checkpoint", ck]
+    _, l1, tim1, _, _ = _file_run(argv, o1)
+    removed = [p for p in os.listdir(ck)
+               if p.startswith("ring_") and "_s0000_" not in p]
+    for p in removed:
+        os.remove(os.path.join(ck, p))
+    _, l2, tim2, _, _ = _file_run(argv, o2)
+    with open(o1, "rb") as f1, open(o2, "rb") as f2:
+        same = f1.read() == f2.read()
+    c2 = tim2["counters"]
+    if not removed or not same or c2.get("ring_steps_resumed") != 1 or \
+            c2.get("ring_steps") != 1 or l2["strip_em"] != 1:
+        raise AssertionError(f"R4 resume: removed {removed}, byte-equal "
+                             f"{same}, counters {c2}, launches {l2}")
+    acc["strip_em"] += l1["strip_em"] + l2["strip_em"]
+    print(f"  R4 resume: {len(removed)} files of sub-ring 1 deleted, rerun "
+          f"resumed sub-ring 0 and recomputed 1 step "
+          f"({l2['strip_em']} strip_em launch), byte-equal")
+    # the auto-route: the narrow band without --ring_sub runs the block
+    # engine, byte-equal to a block run
+    ob, oa = os.path.join(d, "block.ld"), os.path.join(d, "auto.ld")
+    argv = beagle + common[:-2] + ["--verbose", "1"]
+    with _env(NGSLD_RING_AUTOROUTE=None):
+        _, lb, _, _, _ = _file_run(argv, ob)
+        _, la, _, err, _ = _file_run(argv + ["--ring"], oa)
+    with open(ob, "rb") as f1, open(oa, "rb") as f2:
+        same = f1.read() == f2.read()
+    if "--ring auto-route" not in err or not same or la != lb:
+        raise AssertionError(f"R4 auto-route: logged "
+                             f"{'--ring auto-route' in err}, byte-equal "
+                             f"{same}, launches {la} vs {lb}")
+    print("  R4 auto-route: the 10 kb band without --ring_sub ran the block "
+          "engine (logged), byte-equal to the block run, launches "
+          + json.dumps({k: v for k, v in la.items() if v}))
+
+
+def phase_ring(tmp, card, large):
+    """Phase 7: the ring sweep on the card (--ring, one device)."""
+    acc = dict(_NO_LAUNCHES)
+    _ring_bounds(card)
+    _r1(tmp, card, acc)
+    # R2 holds the ring to phase 5b's dense run (run here when 5b did not)
+    _r2_r3(tmp, card, (large or {}).get("dense_run") or _dense_run(tmp), acc)
+    _r3_slice_r4(tmp, card, acc)
+    print("  launches on the ring legs: " + json.dumps(acc))
+    return acc
+
+
 def main(argv=()) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2204,6 +2693,17 @@ def main(argv=()) -> int:
         print("chip_smoke --gather-only: "
               + ("PASS" if all(results) else "FAILED"))
         return 0 if all(results) else 1
+    if "--ring-only" in argv:
+        # a look at the ring alone: build, phase 7 (with phase 5b's dense
+        # run for R2); prints neither the kernels line nor the ok line
+        with tempfile.TemporaryDirectory(prefix="ngsld_chip_smoke_") as tmp:
+            card = _phase(results, "1 environment", phase_env)
+            _phase(results, "2 build", phase_build)
+            _phase(results, "7 ring sweep on the card",
+                   lambda: phase_ring(tmp, card, None))
+        print("chip_smoke --ring-only: "
+              + ("PASS" if all(results) else "FAILED"))
+        return 0 if all(results) else 1
     with tempfile.TemporaryDirectory(prefix="ngsld_chip_smoke_") as tmp:
         card = _phase(results, "1 environment", phase_env)
         _phase(results, "2 build", phase_build)
@@ -2221,13 +2721,16 @@ def main(argv=()) -> int:
         if real is not None:
             _phase(results, "6 device idle share",
                    lambda: phase_idle(tmp, card, real))
+        ring = _phase(results, "7 ring sweep on the card",
+                      lambda: phase_ring(tmp, card, large))
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # (name, source, the TPU kernel it replaces, launches on its main-path
     # run, phase 3/3b measurements); library_ms: no single PyTorch call
-    # computes any of these functions
+    # computes any of these functions; ring_launches: its launches on the
+    # ring legs of phase 7
     rows = [
         ("pair_em_gather", "pair_em.cu", "pallas_em.py:57",
          real["gather_launches"], rep["f32"]),
@@ -2243,7 +2746,8 @@ def main(argv=()) -> int:
         {"name": name, "route": "cuda",
          "source": f"ngsld_tpu_torch/csrc/{src}",
          "replaces": f"ngsld_tpu/kernels/{tpu}", "launches": launches,
-         **{k: m[k] for k in keys}, "library_ms": None}
+         **{k: m[k] for k in keys}, "library_ms": None,
+         "ring_launches": ring[_RING_COUNT[name]]}
         for name, src, tpu, launches, m in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

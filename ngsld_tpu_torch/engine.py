@@ -8,10 +8,13 @@ itself. Precision mirrors ngsld_tpu/engine.py::_resolve_precision with
 CUDA in the TPU's place: auto is f32 on CUDA and f64 on the CPU.
 
 The sweep runs on one device, as gathered pair blocks or as dense strip
-tiles (engine_block picks; NGSLD_BLOCK_STRIP=1/0 forces). Options that
-need a part not ported yet raise StrictError naming it:
---shard/--shard_ind resolving to more than one device, --ring and
---profile (a JAX profiler trace).
+tiles (engine_block picks; NGSLD_BLOCK_STRIP=1/0 forces), or with --ring
+as the site-sharded ring sweep on one device (engine_ring; a band that
+fits inside one ring step's partner sub-block runs the block engine
+instead, with a log line saying so). Options that need a part not ported
+yet raise StrictError naming it: --shard/--shard_ind resolving to more
+than one device (the multi-device ring among them) and --profile (a JAX
+profiler trace).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from .config import Params
 from .engine_block import _run_torch_body
+from .engine_ring import RingNarrowBand, _run_torch_ring
 from .strict import StrictError
 from .utils.logging import RunLog, echo_config
 
@@ -48,14 +52,14 @@ def _refuse_unported(pars: Params, device: torch.device) -> None:
     # --shard 0 means "all devices" (ngsld_tpu.engine.run_jax)
     shard = pars.shard or n_avail // pars.shard_ind
     if shard != 1 or pars.shard_ind != 1:
+        what = ("the multi-device ring is" if pars.ring
+                else "multi-device sweeps are")
         raise StrictError(
-            "shard", f"--shard {pars.shard} x --shard_ind {pars.shard_ind} "
+            "ring" if pars.ring else "shard",
+            f"--shard {pars.shard} x --shard_ind {pars.shard_ind} "
             f"resolves to {max(shard, 1) * pars.shard_ind} devices; the torch "
-            "engine runs on one device (multi-device sweeps are not ported)")
+            f"engine runs on one device ({what} not ported)")
     pars.shard = 1
-    if pars.ring:
-        raise StrictError("ring", "--ring: the ring sweep is not ported to "
-                          "the torch engine")
     if pars.profile:
         raise StrictError("profile", "--profile writes a JAX profiler trace; "
                           "not available in the torch engine")
@@ -82,7 +86,20 @@ def run_torch(pars: Params, out_fh=None) -> None:
         else:
             out_fh = getattr(sys.stdout, "buffer", sys.stdout)
     try:
-        _run_torch_body(pars, out_fh, log, prec, device)
+        if pars.ring:
+            try:
+                _run_torch_ring(pars, out_fh, log, prec, device)
+            except RingNarrowBand as e:
+                # raised before any IO/output: the band fits inside one
+                # ring step's sub-block, so the rectangle sweep would be
+                # mostly dead cells; the block engine has the same output
+                # contract
+                log.log(1, f"==> --ring auto-route: {e}; using the block "
+                           "engine (NGSLD_RING_AUTOROUTE=0 or --ring_sub N "
+                           "to force the ring)")
+                _run_torch_body(pars, out_fh, log, prec, device)
+        else:
+            _run_torch_body(pars, out_fh, log, prec, device)
     finally:
         if close:
             out_fh.close()

@@ -1,9 +1,11 @@
 """Host->device input loaders of the torch engine (ngsld_tpu/loaders.py).
 
-Two streaming paths, both with the reference's exact read semantics
+Three streaming paths, all with the reference's exact read semantics
 (read_data.cpp:13-116):
   * _StreamedGLLoader    binary doubles: slab reader + uploader threads
   * _StreamedTextLoader  gz text through the native chunk parser
+  * _ring_sharded_tables the --ring table, filled slab by slab into its
+                         rows of one device tensor
 
 Each replaces read -> f64 normalise -> f32 narrow -> one monolithic upload
 (three serial passes over the data) with a pipeline: a reader thread
@@ -11,8 +13,7 @@ produces slabs at the engine's precision, an uploader thread copies each
 to the device, join() concatenates them there. On a CUDA device a slab
 crosses from pinned host memory with a non-blocking copy on a side stream;
 join() synchronises that stream before the table is handed over. Not
-carried over: the tunnel keep-alive hooks, the site-sharded ring loader
-and the overlap ingest.
+carried over: the tunnel keep-alive hooks and the overlap ingest.
 """
 
 from __future__ import annotations
@@ -243,3 +244,128 @@ class _StreamedTextLoader(_SlabUploader):
                 raise strict.StrictError(
                     "read_geno", "GENO file not at EOF. "
                     "Check GENO file and number of sites!")
+
+
+# host bytes of one slab of the ring loader: the loader's host memory is
+# O(one slab), whatever the table's size (NGSLD_SLAB_BYTES overrides)
+RING_SLAB_BYTES = 16 << 20
+
+
+def _ring_sharded_tables(pars, n_dev, B, Sp, np_dt, log, device):
+    """Site-sharded table load for --ring (loaders._ring_sharded_tables of
+    the reference): the (Sp, n_ind, 3) table, as B-row blocks, one a
+    device. The port has one device, so the one block IS the whole table:
+    it is allocated on the device once and filled slab by slab from the
+    GENO file into its rows. Host memory is O(one slab), never
+    O(table) (the reference's per-block host buffer would be the whole
+    file at one device). Rows past n_sites are pad rows: a uniform record
+    in the file's space.
+
+    Returns (gl, raw): raw=True means the records are UNNORMALISED file
+    values (binary fast path) and preprocess must run with raw=True,
+    in_log=pars.in_logscale; raw=False means log-normalised (gz-text
+    parse, or the strict.read_geno fallback, whose host memory is
+    O(table) and which logs a note). The three routes keep the
+    reference's read semantics and error surface (read_data.cpp:13-116).
+    """
+    if n_dev != 1 or Sp != B:
+        raise NotImplementedError(
+            f"ring table of {n_dev} blocks: the torch engine holds the ring "
+            "on one device")
+    n, m = pars.n_sites, pars.n_ind
+    device = torch.device(device)
+    gl = torch.empty((Sp, m, 3), dtype=torch.from_numpy(
+        np.empty(0, np_dt)).dtype, device=device)
+    pad_log = np_dt(np.log(1.0 / 3.0))
+    slab_bytes = int(os.environ.get("NGSLD_SLAB_BYTES", RING_SLAB_BYTES))
+
+    def put(s, a):
+        """rows [s, s + len(a)) of the table from a host slab"""
+        if len(a):
+            gl[s:s + len(a)].copy_(torch.from_numpy(a))
+
+    if _StreamedGLLoader.applicable(pars):
+        # binary fast path: RAW f64 records, narrowed and NaN-checked slab
+        # by slab (the checks of _StreamedGLLoader), normalised on device;
+        # pad rows must normalise to a harmless uniform record in whichever
+        # space the RAW file is in
+        gl[n:].fill_(float(pad_log) if pars.in_logscale else 1.0 / 3.0)
+        rec = m * 3
+        slab_sites = max(1, slab_bytes // (rec * 8))
+        with open(pars.in_geno, "rb") as fh:
+            s = 0
+            while s < n:
+                cnt = min(slab_sites, n - s)
+                a = np.fromfile(fh, dtype=np.float64,
+                                count=cnt * rec).reshape(cnt, m, 3)
+                a = a.astype(np_dt, copy=False)
+                bad = np.isnan(a).any() or np.isposinf(a).any()
+                if not bad:
+                    bad = (np.isneginf(a).all(axis=-1).any()
+                           if pars.in_logscale else bool((a < 0).any()))
+                if bad:
+                    raise strict.StrictError(
+                        "read_geno", "NaN found! Is the file format correct?")
+                put(s, a)
+                del a
+                s += cnt
+        return gl, True
+
+    gl[n:].fill_(float(pad_log))
+    if _StreamedTextLoader.applicable(pars):
+        # gz-text: native chunked parse (records arrive log-normalised),
+        # each chunk's records straight into their rows
+        from .native import parse_geno_text_native
+        chunk_bytes = min(slab_bytes, _StreamedTextLoader.CHUNK_BYTES)
+        with strict.open_maybe_gz(pars.in_geno, "rb") as fh:
+            carry = b""
+            s = 0
+            leftover = b""
+            while True:
+                data = fh.read(chunk_bytes)
+                eof = not data
+                buf = carry + data
+                if eof:
+                    if not buf:
+                        break
+                    chunk, carry = buf + b"\n", b""
+                else:
+                    cut = buf.rfind(b"\n")
+                    if cut < 0:
+                        carry = buf
+                        continue
+                    chunk, carry = buf[:cut + 1], buf[cut + 1:]
+                if s >= n:
+                    leftover = chunk
+                    break
+                recs, used = parse_geno_text_native(
+                    chunk, pars.in_probs, pars.in_logscale, m, s,
+                    min(chunk.count(b"\n"), n - s))
+                put(s, np.ascontiguousarray(recs, dtype=np_dt))
+                s += len(recs)
+                del recs
+                if used < len(chunk):
+                    leftover = chunk[used:]
+                    break
+                if eof:
+                    break
+            if s < n:
+                raise strict.StrictError(
+                    "read_geno", "GENO file at premature EOF. "
+                    "Check GENO file and number of sites!")
+            if leftover or carry or fh.read(1):
+                raise strict.StrictError(
+                    "read_geno", "GENO file not at EOF. "
+                    "Check GENO file and number of sites!")
+        return gl, False
+
+    # fallback: the strict reader (the reference's exact error surface);
+    # this DOES hold the table on the host, logged so at-scale users notice
+    log.log(2, "==> ring: input not stream-shardable; using the strict "
+               "reader (host memory O(table))")
+    geno_log = strict.read_geno(pars.in_geno, pars.in_bin, pars.in_probs,
+                                pars.in_logscale, m, n)
+    step = max(1, slab_bytes // (m * 3 * 8))
+    for s in range(0, n, step):
+        put(s, np.ascontiguousarray(geno_log[s:s + step], dtype=np_dt))
+    return gl, False

@@ -149,13 +149,19 @@ def test_checkpoint_kill_and_resume(fixdir, tmp_path, monkeypatch):
     assert resumed.getvalue() == plain.getvalue()
 
 
-@pytest.mark.parametrize("strip", ["0", "1"], ids=["gather", "strip"])
-def test_cli_runs_with_jax_blocked(fixdir, tmp_path, monkeypatch, strip):
+@pytest.mark.parametrize("mode", ["0", "1", "ring"],
+                         ids=["gather", "strip", "ring"])
+def test_cli_runs_with_jax_blocked(fixdir, tmp_path, monkeypatch, mode):
     """The port's CLI in a process where neither jax nor the JAX package
-    can be imported, through the gather sweep and through the strip sweep."""
-    monkeypatch.setenv("NGSLD_BLOCK_STRIP", strip)
+    can be imported, through the gather sweep, the strip sweep and the
+    ring sweep."""
+    ring = []
+    if mode == "ring":
+        ring = ["--ring", "--ring_sub", "2"]
+    else:
+        monkeypatch.setenv("NGSLD_BLOCK_STRIP", mode)
     argv = _argv(fixdir, ["--max_kb_dist", "10", "--min_maf", "0.05",
-                          "--precision", "f32"])
+                          "--precision", "f32"] + ring)
     in_proc = _run_cli(argv, tmp_path / "a.ld")
     out = tmp_path / "b.ld"
     code = ("import sys\n"
@@ -214,7 +220,7 @@ def test_cli_refuses_the_cpu_unless_asked(fixdir, tmp_path, monkeypatch,
 @pytest.mark.parametrize("extra,env,flag", [
     (["--shard", "2"], {}, "shard"),
     (["--shard_ind", "2"], {}, "shard"),
-    (["--ring"], {}, "ring"),
+    (["--ring", "--shard", "2"], {}, "ring"),
     (["--profile", "trace_dir"], {}, "profile"),
 ])
 def test_unported_options_are_refused(fixdir, tmp_path, monkeypatch, capsys,

@@ -341,7 +341,26 @@ def test_checkpoint_copy_roundtrip(files, tmp_path):
     assert again.done(2) and again.path(1) == ck.path(1)
     with pytest.raises(t_strict.StrictError, match="different run"):
         t_ckpt._Checkpoint(str(tmp_path / "ck"), tp, log, extra={"chunk": 6})
-    assert not hasattr(t_ckpt, "_RingSpill")
+    # the ring's spill: the same manifest, tile files and record layout
+    assert t_ckpt._RING_COLS == j_ckpt._RING_COLS
+    extra = dict(mode="ring", n_dev=1, n_sub=2, block=256, strip=False,
+                 cols="slim-v2")
+    cols = dict(a=np.array([3, 3, 7], np.int32),
+                pj=np.array([4, 9, 8], np.int32),
+                r2p=np.array([0.5, 0.25, 1.0]),
+                f=np.arange(12, dtype=np.float64).reshape(3, 4),
+                n_iter=np.array([3, 4, 5], np.int8))
+    rdir = str(tmp_path / "rck")
+    rs = t_ckpt._RingSpill(rdir, tp, extra, 0, True)
+    rs.save_step(1, 0, {0: cols})
+    jr = j_ckpt._RingSpill(rdir, jp, extra, 0, True)
+    assert jr.done(1, 0) and not jr.done(0, 0)
+    assert jr.block_tiles(0) == rs.block_tiles(0) == [rs.tile_path(1, 0, 0)]
+    got = np.load(rs.tile_path(1, 0, 0))
+    want = j_ckpt._RingSpill.pack(cols)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    with pytest.raises(t_strict.StrictError, match="different run"):
+        t_ckpt._RingSpill(rdir, tp, dict(extra, strip=True), 0, True)
 
 
 def test_loaders_copy_keeps_the_rules_and_imports_only_the_port():
@@ -362,6 +381,7 @@ def test_loaders_copy_keeps_the_rules_and_imports_only_the_port():
                          re.M)
     for knob in ("NGSLD_NO_FASTBIN", "NGSLD_NO_FASTTEXT", "NGSLD_SLAB_BYTES"):
         assert knob in src and knob in inspect.getsource(j_loaders)
-    # waiting for their slices: the ring loader and the overlap ingest
-    assert not hasattr(t_loaders, "_ring_sharded_tables")
+    # the ring loader came with the ring; the overlap ingest waits for
+    # its slice
+    assert hasattr(t_loaders, "_ring_sharded_tables")
     assert not hasattr(t_loaders, "_OverlapIngest")
