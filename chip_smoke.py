@@ -121,6 +121,22 @@ Phases, each printing its result and seconds on its own line:
      for its piece, against strict; R4, resume by sub-ring from a
      checkpoint whose later sub-ring was deleted (byte-equal), and the
      narrow-band auto-route (byte-equal to the block run)
+  8. the host-side remainder: --profile DIR on phase 5's 10,000 x 100
+     gather leg (pair_em.cu), the 25k x 100 strip leg (strip_em.cu) and
+     phase 4's fixture through --ring (strip_em.cu once a step), each run
+     four times in turns (without, with, with, without the flag): rows
+     byte-equal, the same launches, each trace one Chrome trace holding
+     one device event of the kernel per launch; walls, trace bytes; the
+     gather leg also as two new processes of the CLI, without and with
+     the flag (the process's first profiler). Then the port's tools on the
+     gather leg's TSV, each timed: prune (r2, --max_kb_dist 10,
+     --min_weight 0.5; no kept pair within 10 kb at or above 0.5),
+     fit_decay --n_ind 100 (a finite fit), ld_blocks.extract_region over
+     50 kb (against a scan of the rows), merge of the TSV cut into five
+     shards (byte-equal). Last, extras/: the HMM's forward, backward,
+     posterior and viterbi at 100 x 20,000 x 2 on the card in f64 against
+     the CPU in f64 (tolerances printed; paths equal), and findmax_torch
+     on the card
 
 Then one JSON line of per-kernel results and, last, the `ok` line. Any
 failure exits non-zero without those lines; so does a machine without a
@@ -136,6 +152,7 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2028,6 +2045,8 @@ def phase_real(tmp, card):
           f"launches, {n_rows} sampled rows within the f32 contract of "
           f"strict; wall {wall_g:.3f} s [{card}]")
     real["gather_launches"] = launches["pair_em"]
+    # phase 8 runs this leg again, with and without --profile
+    real["gather_argv"] = argv_c[:-2] + ["--verbose", "0"]
     outs = {}
     for sweep, flag in (("gather", "0"), ("strip", "1")):
         out = os.path.join(d, f"cut_{sweep}.ld")
@@ -2656,6 +2675,307 @@ def phase_ring(tmp, card, large):
     return acc
 
 
+# ---------------------------------------------------------------- phase 8
+
+PRUNE_KB, PRUNE_W = 10, 0.5      # prune: --max_kb_dist, --min_weight (r2)
+REGION_BP = 50_000               # ld_blocks.extract_region's region
+N_PARTS = 5                      # merge: the TSV cut into this many shards
+HMM_B, HMM_L = 100, 20_000       # the HMM cell: sequences x sites, 2 states
+# the HMM on the card in f64 against the CPU in f64: values within
+# HMM_REL * max(|x|, 1), posterior probabilities within HMM_POST
+HMM_REL, HMM_POST = 1e-9, 1e-6
+
+
+def _sha256(path):
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _one_trace(name, trace_dir, kernel, n_launch):
+    """The one Chrome trace in trace_dir, parsed, checked to hold one
+    device event of `kernel` for each of n_launch launches, and removed:
+    (bytes, events, device busy s)."""
+    from ngsld_tpu_torch.utils.devtrace import device_busy
+    files = os.listdir(trace_dir)
+    if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"{name}: the trace dir holds {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    busy, by_cat, _ = device_busy(events)
+    n_dev = sum(1 for ev in events if ev.get("cat") == "kernel"
+                and kernel in ev.get("name", ""))
+    if n_dev != n_launch or n_dev < 1:
+        raise AssertionError(f"{name}: {n_dev} device events of {kernel} in "
+                             f"the trace for {n_launch} launches; device "
+                             f"categories {sorted(by_cat)}")
+    out = (os.path.getsize(path), len(events), busy / 1e6)
+    shutil.rmtree(trace_dir)
+    return out
+
+
+def _profiled_pair(card, argv, d, name, count, kernel, **env):
+    """The port's CLI on one run four times in turns, without --profile,
+    with it, with it, without: the rows byte-equal, the same launches, and
+    each --profile DIR holding one Chrome trace that parses and has one
+    device event of `kernel` for each launch that its counter `count`
+    made. Returns (the first run's output path, its launches)."""
+    tag = name.split()[0]
+    first = digest = want = None
+    walls = {False: [], True: []}
+    traces = []
+    with _env(**env):
+        for k, traced in enumerate((False, True, True, False)):
+            out = os.path.join(d, f"{tag}_{k}.ld")
+            trace_dir = os.path.join(d, f"{tag}_trace{k}")
+            wall, launches, _, _, _ = _file_run(
+                argv + (["--profile", trace_dir] if traced else []), out)
+            walls[traced].append(wall)
+            if want is None:
+                want, first, digest = launches, out, _sha256(out)
+            elif launches != want or _sha256(out) != digest:
+                raise AssertionError(f"{name}: run {k} (--profile "
+                                     f"{traced}): launches {launches} "
+                                     f"against {want}, or rows differ")
+            else:
+                os.remove(out)
+            if traced:
+                traces.append(_one_trace(name, trace_dir, kernel,
+                                         launches[count]))
+    w0, w1 = sum(walls[False]), sum(walls[True])
+    print(f"  {name}: rows byte-equal in 4 runs, without, with, with and "
+          f"without --profile ({os.path.getsize(first)} bytes); launches "
+          + json.dumps({k: v for k, v in want.items() if v})
+          + f"; walls {walls[False][0]:.3f}, {walls[True][0]:.3f}, "
+          f"{walls[True][1]:.3f}, {walls[False][1]:.3f} s (overhead "
+          f"{w1 / w0 - 1:.4f}); traces (bytes, events, device busy s) "
+          f"{traces}; {want[count]} {kernel} device events a trace = "
+          f"launches [{card}]")
+    return first, want
+
+
+def _fresh_pair(card, argv, d, kernel, n_launch, rows, **env):
+    """The same run as a user starts it, `python -m ngsld_tpu_torch.cli` in
+    a new process, without --profile and then with it (the first profiler
+    of that process): rows byte-equal to `rows`, the trace holding the
+    kernel's n_launch device events; each process's wall."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(d, "fresh.ld")
+    trace_dir = os.path.join(d, "fresh_trace")
+    walls = []
+    for traced in (False, True):
+        cmd = [sys.executable, "-m", "ngsld_tpu_torch.cli", *argv, "--out",
+               out] + (["--profile", trace_dir] if traced else [])
+        with _env(**env):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600, cwd=root)
+            walls.append(time.perf_counter() - t0)
+        if r.returncode != 0 or _sha256(out) != _sha256(rows):
+            raise AssertionError(f"fresh process (--profile {traced}): rc "
+                                 f"{r.returncode} or rows differ\n"
+                                 + r.stderr[-3000:])
+        os.remove(out)
+    trace = _one_trace("fresh process", trace_dir, kernel, n_launch)
+    print(f"    the same as a new process each: wall {walls[0]:.3f} s "
+          f"without, {walls[1]:.3f} s with --profile (the process's first "
+          f"profiler; overhead {walls[1] / walls[0] - 1:.4f}); rows "
+          f"byte-equal; trace (bytes, events, device busy s) {trace} "
+          f"[{card}]")
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _quiet(fn):
+    """fn() with its stdout and stderr captured: (result, stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        res = fn()
+    return res, out.getvalue()
+
+
+def _tools(tsv, d):
+    """The port's four tools on a TSV the card wrote, each timed: prune's
+    kept set against the invariant of tests/test_tools.py:62 (no kept pair
+    within the distance at or above the weight), a finite decay fit,
+    extract_region against a scan of the same rows, and merge of the TSV
+    cut into shards byte-equal to the whole."""
+    from ngsld_tpu_torch.tools import fit_decay, ld_blocks, merge, prune
+    kept_path = os.path.join(d, "kept.txt")
+    (rc, _), t_prune = _timed(lambda: _quiet(lambda: prune.main([
+        "--input", tsv, "--max_kb_dist", str(PRUNE_KB), "--min_weight",
+        str(PRUNE_W), "--output", kept_path])))
+    kept = set(_read_lines(kept_path))
+    with open(tsv) as fh:
+        fh.readline()
+        first = fh.readline()
+    chrom, _, p0 = first.split("\t")[0].rpartition(":")
+    lo, hi = int(p0), int(p0) + REGION_BP
+
+    def inside(label):
+        c, _, p = label.rpartition(":")
+        return c == chrom and lo <= int(p) <= hi
+
+    n_rows = n_edges = n_region = 0
+    sites = set()
+    with open(tsv) as fh:
+        fh.readline()
+        for ln in fh:
+            f = ln.split("\t", 7)
+            sites.update(f[:2])
+            n_rows += 1
+            w = abs(float(f[6]))
+            if float(f[2]) <= PRUNE_KB * 1000 and w >= PRUNE_W and \
+                    np.isfinite(w):
+                n_edges += 1
+                if f[0] in kept and f[1] in kept:
+                    raise AssertionError(f"prune kept both ends of {ln}")
+            if inside(f[0]) and inside(f[1]) and np.isfinite(float(f[6])):
+                n_region += 1
+    if rc != 0 or not kept or not kept <= sites:
+        raise AssertionError(f"prune rc {rc}, {len(kept)} kept")
+    print(f"  prune (r2, --max_kb_dist {PRUNE_KB}, --min_weight {PRUNE_W}) "
+          f"on the whole TSV ({n_rows} rows, {len(sites)} sites): kept "
+          f"{len(kept)}; none of the {n_edges} pairs within {PRUNE_KB} kb "
+          f"at or above the weight has both ends kept; {t_prune:.3f} s")
+
+    lst = os.path.join(d, "ld_files.txt")
+    with open(lst, "w") as fh:
+        fh.write(tsv + "\n")
+    (rc, text), t_fit = _timed(lambda: _quiet(lambda: fit_decay.main([
+        "--ld_files", lst, "--ld", "r2", "--n_ind", str(REAL_I),
+        "--fit_level", "3", "--seed", "1"])))
+    hdr, row = text.splitlines()[:2]
+    fit = dict(zip(hdr.split("\t"), row.split("\t")))
+    if rc != 0 or not np.isfinite(float(fit["DecayRate"])):
+        raise AssertionError(f"fit_decay rc {rc}: {text}")
+    print(f"  fit_decay --n_ind {REAL_I}: DecayRate {fit['DecayRate']}, "
+          f"LDmax {fit['LDmax']}, LDmin {fit['LDmin']}; {t_fit:.3f} s")
+
+    (pos, dp, r2), t_reg = _timed(
+        lambda: ld_blocks.extract_region(tsv, chrom, lo, hi))
+    n_fin = int(np.isfinite(r2[np.triu_indices(len(pos), 1)]).sum())
+    if pos != sorted(set(pos)) or n_fin != n_region or n_region < 1 or \
+            not np.array_equal(r2, r2.T, equal_nan=True) or \
+            not np.array_equal(dp, dp.T, equal_nan=True):
+        raise AssertionError(f"extract_region: {len(pos)} sites, {n_fin} "
+                             f"finite r2 cells, {n_region} rows in region")
+    print(f"  ld_blocks.extract_region {chrom}:{lo}-{hi}: {len(pos)} sites, "
+          f"{n_fin} finite r2 cells = the region's rows; {t_reg:.3f} s")
+
+    stem = os.path.join(d, "parts.ld")
+    with open(tsv, "rb") as fh:
+        lines = fh.readlines()
+    cut = np.linspace(0, len(lines), N_PARTS + 1).astype(int)
+    for k in range(N_PARTS):
+        with open(f"{stem}.part{k:05d}", "wb") as fh:
+            fh.writelines(lines[cut[k]:cut[k + 1]])
+    del lines
+    merged = os.path.join(d, "merged.ld")
+    (rc, _), t_merge = _timed(lambda: _quiet(
+        lambda: merge.main(["--out", merged, "--delete-parts", stem])))
+    if rc != 0 or _sha256(merged) != _sha256(tsv):
+        raise AssertionError(f"merge rc {rc}: not byte-equal to the TSV")
+    print(f"  merge of {N_PARTS} shards: byte-equal to the TSV "
+          f"({os.path.getsize(merged)} bytes); {t_merge:.3f} s")
+    os.remove(merged)
+
+
+def _hmm(card):
+    """extras.hmm on the card at HMM_B x HMM_L x 2 in f64 against the same
+    calls on the CPU in f64 (f32 is no reference at this length: the log
+    tables reach about -2e4, where one f32 step is 2e-3), and
+    findmax_torch on the card."""
+    import torch
+    from ngsld_tpu_torch.extras import hmm
+    from ngsld_tpu_torch.extras.optimize import findmax_torch
+    rng = np.random.default_rng(0)
+    em = np.log(rng.random((HMM_B, HMM_L, 2)))
+    dist = rng.integers(1, 2000, (HMM_B, HMM_L)).astype(np.float64)
+    q, alpha = [0.7, 0.3], 1e-3
+    names = ("forward", "backward", "posterior", "viterbi")
+
+    def run(device, dtype):
+        args = [torch.tensor(x, dtype=dtype, device=device)
+                for x in (q, em, dist)]
+        out, secs = {}, {}
+        for name in names:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = getattr(hmm, name)(args[0], alpha, args[1], args[2])
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            res = res if isinstance(res, tuple) else (res,)
+            out[name] = [r.cpu() for r in res]
+        return out, secs
+
+    ref, t_cpu = run("cpu", torch.float64)
+    got, t_card = run("cuda", torch.float64)
+    errs = {}
+    for name in names:
+        for k, (a, b) in enumerate(zip(got[name], ref[name])):
+            if a.dtype == torch.int32:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: Viterbi paths differ at "
+                                         f"{int((a != b).sum())} sites")
+                continue
+            if name == "posterior":
+                err, tol = float((a - b).abs().max()), HMM_POST
+            else:
+                err = float(((a - b).abs() / b.abs().clamp(min=1)).max())
+                tol = HMM_REL
+            errs[f"{name}[{k}]"] = err
+            if not err <= tol:
+                raise AssertionError(f"{name}[{k}]: {err:.3e} > {tol}")
+    print(f"  hmm {HMM_B} x {HMM_L} x 2, f64 on the card against the CPU in "
+          f"f64: paths equal, errors (relative to max(|x|, 1), posterior "
+          f"absolute; tolerances {HMM_REL}, {HMM_POST}) " + json.dumps(errs))
+    print("    s on the card: " + json.dumps(t_card) + "; on the CPU: "
+          + json.dumps(t_cpu) + f" [{card}]")
+    x0 = torch.tensor([0.1, 0.9], device="cuda")
+    (x, f, ok), t_opt = _timed(lambda: findmax_torch(
+        lambda x: -torch.sum((x - 0.3) ** 2), x0, lower=torch.zeros(2),
+        upper=torch.ones(2)))
+    if not ok or x.device.type != "cuda" or \
+            float((x - 0.3).abs().max()) > 1e-4:
+        raise AssertionError(f"findmax_torch: x {x}, f {f}, ok {ok}")
+    print(f"  findmax_torch on the card: x {x.tolist()} (0.3 each), f_max "
+          f"{float(f):.3e}, converged; {t_opt:.3f} s")
+
+
+def phase_profile_tools(tmp, card, real):
+    """Phase 8: --profile on three runs of the main path, the LD tools on
+    the rows the card wrote, and extras/ on the card."""
+    d = os.path.join(tmp, "phase8")
+    os.makedirs(d, exist_ok=True)
+    strip_argv = real["argv"][:real["argv"].index("--verbose")] + [
+        "--verbose", "0"]
+    files = _slice_files(tmp)
+    ring_argv = ["--geno", files["beagle"], "--probs", "--n_ind", "24",
+                 "--n_sites", "2000", "--pos", files["pos"], "--max_kb_dist",
+                 "10", "--min_maf", "0.05", "--extend_out", "--verbose", "0",
+                 "--ring", "--ring_sub", "2"]
+    tsv, launches = _profiled_pair(card, real["gather_argv"], d,
+                                   "gather 10,000 x 100", "pair_em",
+                                   "pair_em_kernel", NGSLD_BLOCK_STRIP="0")
+    _fresh_pair(card, real["gather_argv"], d, "pair_em_kernel",
+                launches["pair_em"], tsv, NGSLD_BLOCK_STRIP="0")
+    _profiled_pair(card, strip_argv, d, "strip 25k x 100", "strip_em",
+                   "strip_em_kernel", NGSLD_BLOCK_STRIP=None)
+    _profiled_pair(card, ring_argv, d, "ring 24 x 2,000", "strip_em",
+                   "strip_em_kernel")
+    _tools(tsv, d)
+    _hmm(card)
+
+
 def main(argv=()) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2723,6 +3043,9 @@ def main(argv=()) -> int:
                    lambda: phase_idle(tmp, card, real))
         ring = _phase(results, "7 ring sweep on the card",
                       lambda: phase_ring(tmp, card, large))
+        if real is not None:
+            _phase(results, "8 --profile, the LD tools and extras/",
+                   lambda: phase_profile_tools(tmp, card, real))
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1

@@ -55,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk_pairs", type=int, default=1 << 19,
                    help="pairs per device batch for the torch engine")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a JAX profiler trace of the run to DIR")
+                   help="write a torch.profiler trace of the run to DIR "
+                        "(one Chrome trace, *.pt.trace.json)")
     p.add_argument("--checkpoint", default=None, metavar="DIR",
                    help="make the run resumable via shards in DIR: per-block "
                         "output TSVs (block engine) or per-ring-step .npz "

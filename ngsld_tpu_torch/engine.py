@@ -11,10 +11,17 @@ The sweep runs on one device, as gathered pair blocks or as dense strip
 tiles (engine_block picks; NGSLD_BLOCK_STRIP=1/0 forces), or with --ring
 as the site-sharded ring sweep on one device (engine_ring; a band that
 fits inside one ring step's partner sub-block runs the block engine
-instead, with a log line saying so). Options that need a part not ported
-yet raise StrictError naming it: --shard/--shard_ind resolving to more
-than one device (the multi-device ring among them) and --profile (a JAX
-profiler trace).
+instead, with a log line saying so). --shard/--shard_ind resolving to
+more than one device (the multi-device ring among them) are not ported
+yet and raise StrictError naming them.
+
+--profile DIR records the run with torch.profiler (CPU activity, plus
+CUDA activity on the card; no shapes, no stacks) from the resolved device
+to the end of the run, also one that raises, and writes it into DIR as
+one Chrome trace under tensorboard_trace_handler's naming
+(<host>_<pid>.<time_ns>.pt.trace.json), which TensorBoard and Perfetto
+open. The JAX package writes an XPlane trace there instead; the flag
+keeps its meaning, a profiler trace of the run in DIR, not its format.
 """
 
 from __future__ import annotations
@@ -60,9 +67,18 @@ def _refuse_unported(pars: Params, device: torch.device) -> None:
             f"resolves to {max(shard, 1) * pars.shard_ind} devices; the torch "
             f"engine runs on one device ({what} not ported)")
     pars.shard = 1
-    if pars.profile:
-        raise StrictError("profile", "--profile writes a JAX profiler trace; "
-                          "not available in the torch engine")
+
+
+def _start_profile(trace_dir: str, device: torch.device):
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
+    prof.start()
+    return prof
 
 
 def run_torch(pars: Params, out_fh=None) -> None:
@@ -78,14 +94,17 @@ def run_torch(pars: Params, out_fh=None) -> None:
     if pars.verbose >= 1:
         echo_config(pars, f"(torch, {device}, {prec})")
 
+    # one trace for the whole run, the auto-routed ring's block run too;
+    # stop() writes it, also when the run raises
+    prof = _start_profile(pars.profile, device) if pars.profile else None
     close = False
-    if out_fh is None:
-        if pars.out is not None:
-            out_fh = open(pars.out, "wb")
-            close = True
-        else:
-            out_fh = getattr(sys.stdout, "buffer", sys.stdout)
     try:
+        if out_fh is None:
+            if pars.out is not None:
+                out_fh = open(pars.out, "wb")
+                close = True
+            else:
+                out_fh = getattr(sys.stdout, "buffer", sys.stdout)
         if pars.ring:
             try:
                 _run_torch_ring(pars, out_fh, log, prec, device)
@@ -103,3 +122,5 @@ def run_torch(pars: Params, out_fh=None) -> None:
     finally:
         if close:
             out_fh.close()
+        if prof is not None:
+            prof.stop()

@@ -221,7 +221,6 @@ def test_cli_refuses_the_cpu_unless_asked(fixdir, tmp_path, monkeypatch,
     (["--shard", "2"], {}, "shard"),
     (["--shard_ind", "2"], {}, "shard"),
     (["--ring", "--shard", "2"], {}, "ring"),
-    (["--profile", "trace_dir"], {}, "profile"),
 ])
 def test_unported_options_are_refused(fixdir, tmp_path, monkeypatch, capsys,
                                       extra, env, flag):
