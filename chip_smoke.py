@@ -10,6 +10,8 @@
                                          # phases 1, 2, 3d and the gather
                                          # cells of 3 and 3b
     python3 chip_smoke.py --ring-only    # the ring alone: phases 1, 2, 7
+    python3 chip_smoke.py --shard-only   # several ranks: phases 1, 2, 5,
+                                         # 5b, 6, 9
 
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
@@ -53,7 +55,7 @@ Phases, each printing its result and seconds on its own line:
      cell for G = 4, 8, 16, 32 lanes a pair, with the lane-use model of
      each layout read from the kernel's own n_iter; pair_em_rows for every
      block width (64-512 threads) at 2,048 x 4,000 and at 524,288 pairs of
-     800-9,642 individuals (f32) and 300 and 2,048 (f64), with its blocks
+     800-4,000 individuals (f32) and 300 and 2,048 (f64), with its blocks
      an SM; the slowest pair of the 2,048 x 4,000 cell launched alone (one
      pair's iteration latency), the cell's nIter histogram and that pair's
      share of the cell's time; the cluster body at 2,048 x 20,000 for
@@ -67,8 +69,9 @@ Phases, each printing its result and seconds on its own line:
      ceilings, with the refusal one past each, cluster sizes 1, 2, 8
      and one past the cluster's capacity through the streamed body, x = 0
      pairs, --ignore_miss_data, f64 tables); the ladder's crossovers,
-     gather against rows and rows against the cluster body (at its rule's
-     C and at C = 1 and 2), f32 and f64, at 16,384 and 524,288 pairs; the
+     gather against rows at 16,384 and 524,288 pairs and rows against the
+     cluster body (at its rule's C and at C = 1 and 2) at 16,384, f32 and
+     f64; the
      lane groups against rows at 8,192-524,288 random pairs and on the
      band planner's blocks of 16,384-65,536 pairs, on both sides of their
      switch
@@ -137,6 +140,23 @@ Phases, each printing its result and seconds on its own line:
      posterior and viterbi at 100 x 20,000 x 2 on the card in f64 against
      the CPU in f64 (tolerances printed; paths equal), and findmax_torch
      on the card
+  9. the block engine on two ranks that share the card (device
+     collectives over gloo), each a new process started through launcher
+     variables as torchrun starts them: 9a --shard 2 on phase 5's 10,000 x
+     100 gather cell (pair_em.cu once a block on each rank's half, rows
+     against phase 5's file: the same pairs, byte-equal where both halves
+     took the block's rung), 9b --shard 2 on the 25k x 100 strip cell
+     (strip_em.cu once a chunk on each rank's tiles, rows against phase
+     6's file and a sample against strict), 9c --shard_ind 2 in f32 on
+     phase 5b's 2,048 x 4,000 file, sampled (the gather step for
+     --shard_ind) and dense (its strip step), against --shard_ind 1 runs
+     (the pair set equal, values under the f32 contract; no kernel
+     launched); 9d the two --shard_ind steps at world size 1 over NCCL
+     on the card, the gather step against compute_block (pair_em.cu) and
+     the strip step on 64 all-pairs tiles against strip_em.cu (the
+     reference's contract); 9a again over NCCL when the box
+     has two cards. Each rank's launches, rungs and all-reduces, and the
+     walls (the path on one shared card, not scaling)
 
 Then one JSON line of per-kernel results and, last, the `ok` line. Any
 failure exits non-zero without those lines; so does a machine without a
@@ -158,6 +178,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 
 sys.modules["jax"] = None         # any `import jax` below raises ImportError
 sys.modules["ngsld_tpu"] = None   # and so does any import of the JAX package
@@ -180,6 +201,7 @@ FULL_I, FULL_S, FULL_BAND, FULL_RATE = 1_000, 8_192, 2_048, 0.05
 # 248,000 pairs, 124,000 sampled) reaches the lane groups
 SLICE_BAND = 128
 ROWS_FULL_STRIDE = 32            # pairs of that block held against plain
+IND_STRIP_TILES = 64             # 9d: the strip step's tiles over NCCL
 ENGINE_TAG = "(torch, cuda"        # the engine's device in its config echo
 F32_TOL, F64_TOL = 1e-6, 1e-12   # kernel vs plain: f's output rounding
 R2P_TOL = 2e-5                   # strip kernel's in-kernel Pearson r2
@@ -1123,9 +1145,11 @@ GATHER_KERNELS_SASS = (("pair_em", "pair_em_kernel", "IfLb0E"),
 GROUPS = (4, 8, 16, 32)          # lane groups timed at the gather cell
 # pair_em_rows' widths, timed at (pairs, cohort, table itemsize)
 ROWS_WIDTHS = (64, 128, 256, 512)
+# (the rule was settled on these and on 524,288 x 6,000 and x 9,642 in
+# f32; those two cells are no longer run, to keep the whole run near
+# 800 s)
 ROWS_SWEEP = ((BIG_P, ROWS_I, 4), (MAIN_P, 800, 4), (MAIN_P, 1_200, 4),
-              (MAIN_P, 4_000, 4), (MAIN_P, 6_000, 4), (MAIN_P, 9_642, 4),
-              (MAIN_P, 300, 8), (MAIN_P, 2_048, 8))
+              (MAIN_P, 4_000, 4), (MAIN_P, 300, 8), (MAIN_P, 2_048, 8))
 # crossovers: gather against rows, and rows against the cluster body
 X_GATHER_ROWS = (100, 400, 500, 550, 600, 800, 1_000, 1_200, 2_048, 4_000)
 # f64 tables: the lane groups' slots fit to 2,421 individuals
@@ -1139,7 +1163,9 @@ X_PAIRS_I = ((100, 4), (400, 4), (500, 4), (200, 8), (250, 8))
 # of phase 5b's runs)
 X_BANDED, X_BAND = (16_384, 32_768, 65_536), 128
 # pairs of the crossover cells: a sampled large-cohort block and the
-# gather sweep's default block (--chunk_pairs)
+# gather sweep's default block (--chunk_pairs); rows against the cluster
+# body at the first only (the rows / ichunk switch is by cohort alone; it
+# was measured at both counts, and the second is no longer run, for time)
 X_P = (16_384, MAIN_P)
 
 
@@ -1580,8 +1606,9 @@ def _crossovers(card):
     out = {}
     for n_pairs in X_P:
         sidx = _random_pairs(n_pairs, 11)
-        lists = {4: (X_GATHER_ROWS, X_ROWS_ICHUNK),
-                 8: (X_GATHER_ROWS_F64, X_ROWS_ICHUNK_F64)}
+        big = n_pairs == MAIN_P
+        lists = {4: (X_GATHER_ROWS, () if big else X_ROWS_ICHUNK),
+                 8: (X_GATHER_ROWS_F64, () if big else X_ROWS_ICHUNK_F64)}
         cells = [(n, dtype) for dtype, (xg, xi) in
                  ((torch.float32, lists[4]), (torch.float64, lists[8]))
                  for n in sorted(set(xg) | set(xi))]
@@ -2025,7 +2052,7 @@ def phase_real(tmp, card):
     print("  stages: " + json.dumps(tim["stages"]))
     print("  counters: " + json.dumps(tim["counters"]))
     real = dict(strip_launches=launches["strip_em"], wall=wall, pairs=n_pairs,
-                argv=argv)
+                argv=argv, sim=sim, pars=pars)
 
     # ---- the gather path, driven again at 10,000 sites of the same
     # fixture, and the strip sweep on the same sites beside it
@@ -2045,6 +2072,7 @@ def phase_real(tmp, card):
           f"launches, {n_rows} sampled rows within the f32 contract of "
           f"strict; wall {wall_g:.3f} s [{card}]")
     real["gather_launches"] = launches["pair_em"]
+    real["gather_blocks"] = n_blocks_c
     # phase 8 runs this leg again, with and without --profile
     real["gather_argv"] = argv_c[:-2] + ["--verbose", "0"]
     outs = {}
@@ -2171,6 +2199,8 @@ def phase_large(tmp, card):
                                     glf=glf[n_ind], pos=pos[key])
         if name == "rows, full blocks":
             _rows_full_block(head[0], n_ind, key, card)
+    # phase 9 runs the 2,048-site files again on two ranks
+    out.update(argv_for=argv_for, sims=sims, pos=pos)
     return out
 
 
@@ -2976,6 +3006,324 @@ def phase_profile_tools(tmp, card, real):
     _hmm(card)
 
 
+# ---------------------------------------------------------------- phase 9
+
+# a rank started through launcher variables (as torchrun sets them): the
+# port's CLI with jax and the JAX package blocked; its kernels' launch
+# counts (from 0 in this new process) to a file
+_RANK_CODE = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["ngsld_tpu"] = None
+from ngsld_tpu_torch.cli import main
+from ngsld_tpu_torch.kernels import pair_em as pmod
+from ngsld_tpu_torch.kernels import strip_em as smod
+rc = main(json.loads(sys.argv[1]))
+with open(sys.argv[2], "w") as fh:
+    json.dump(dict(pair_em=pmod.LAUNCHES, strip_em=smod.LAUNCHES,
+                   pair_em_rows=pmod.LAUNCHES_ROWS,
+                   pair_em_ichunk=pmod.LAUNCHES_ICHUNK,
+                   pair_em_ichunk_stream=pmod.LAUNCHES_ICHUNK_STREAM,
+                   strip_em_stream=smod.LAUNCHES_STREAM), fh)
+sys.exit(rc)
+"""
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _launch_ranks(argv, out, world, tag, **env):
+    """The port's CLI as `world` new processes with launcher variables
+    (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR/PORT), all
+    on this box: rank 0 writes the rows to `out`. A rank that exits
+    non-zero ends the others and fails the phase; none outlives the call.
+    Returns (wall s, each rank's launch counts, each rank's timings JSON)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.dirname(out)
+    port = _free_port()
+    tj = os.path.join(d, f"{tag}.json")
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            penv = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                        LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                        NGSLD_TIMINGS_JSON=tj)
+            for k, v in env.items():
+                if v is None:
+                    penv.pop(k, None)
+                else:
+                    penv[k] = v
+            logs.append(open(os.path.join(d, f"{tag}.err{r}"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RANK_CODE,
+                 json.dumps(argv + ["--out", out]),
+                 os.path.join(d, f"{tag}.launches{r}")],
+                cwd=root, env=penv, stdout=logs[-1], stderr=logs[-1]))
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs):
+                break
+            if time.perf_counter() - t0 > 600:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for fh in logs:
+            fh.close()
+    wall = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        with open(os.path.join(d, f"{tag}.err0")) as fh:
+            e0 = fh.read()[-3000:]
+        with open(os.path.join(d, f"{tag}.err{world - 1}")) as fh:
+            e1 = fh.read()[-3000:]
+        raise AssertionError(f"{tag}: ranks exited {codes}\nrank 0:\n{e0}"
+                             f"\nrank {world - 1}:\n{e1}")
+    launches, tims = [], []
+    for r in range(world):
+        with open(os.path.join(d, f"{tag}.launches{r}")) as fh:
+            launches.append(json.load(fh))
+        with open(tj + (f".rank{r}" if r else "")) as fh:
+            tims.append(json.load(fh))
+    return wall, launches, tims
+
+
+def _same_pairs(one, many, label):
+    """`many` holds the pairs of `one` in the same order: each row's first
+    two columns equal. Returns (rows byte-equal, rows held to the f32
+    contract instead)."""
+    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
+    if len(many) != len(one) or one[0] != many[0]:
+        raise AssertionError(f"{label}: {len(many)} lines against {len(one)}")
+    if [r.split("\t", 2)[:2] for r in one] != \
+            [r.split("\t", 2)[:2] for r in many]:
+        raise AssertionError(f"{label}: the pair sets differ")
+    diff = [(a, b) for a, b in zip(one, many) if a != b]
+    if diff:
+        cmp_vs_strict(one[:1] + [a for a, _ in diff],
+                      many[:1] + [b for _, b in diff], 0)
+    return len(one) - 1 - len(diff), len(diff)
+
+
+def _rank_lines(launches, tims, kernels):
+    """One line a rank: its launches of `kernels`, its rungs, blocks or
+    chunks, and its 'ind' all-reduces with their host seconds."""
+    print("    rank 0's phases: " + json.dumps(tims[0]["phases"]))
+    print("    rank 0's stages: " + json.dumps(tims[0]["stages"]))
+    for r, (lc, tj) in enumerate(zip(launches, tims)):
+        c, st = tj["counters"], tj["stages"]
+        rungs = {k: v for k, v in c.items() if k.startswith("rung_")}
+        ar_s = st.get("mesh: 'ind' all-reduce", 0.0)
+        print(f"    rank {r}: launches " + json.dumps(
+            {k: lc[k] for k in kernels}) + f", rungs {json.dumps(rungs)}, "
+            f"{c.get('blocks_computed', 0)} blocks or chunks, "
+            f"{c.get('ind_allreduces', 0)} 'ind' all-reduces ({ar_s} s), "
+            f"pieces to rank 0 {st.get('mesh: pieces to rank 0', 0.0)} s")
+
+
+def _only(launches, kernel, n, label):
+    """Every rank launched `kernel` n times and no other kernel."""
+    for r, lc in enumerate(launches):
+        if lc != dict(_NO_LAUNCHES, **({kernel: n} if kernel else {})):
+            raise AssertionError(f"{label}: rank {r} launches {lc}; expected "
+                                 f"{kernel} x {n} only")
+
+
+def _ind_steps_nccl(card):
+    """9d: the two --shard_ind steps at world size 1 over NCCL, on the
+    card: a block of 65,536 pairs x 100 individuals through
+    parallel.sweep.compute_block_ind against the one-device step
+    (compute_block: pair_em.cu and the f32 Pearson), and the first
+    IND_STRIP_TILES all-pairs tiles of the strip cell through
+    parallel.strip_ind.strip_tiles_ind (whole planes while more than half
+    a batch's cells run, then gathered) against strip_em.cu. The
+    reference's contract: n_used exact, nIter within 1 (equal at more
+    than 99.9%), f within 3e-5 where nIter is equal, r2p within 2e-5."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from ngsld_tpu_torch import compute
+    from ngsld_tpu_torch.kernels.strip_em import strip_em
+    from ngsld_tpu_torch.parallel import mesh
+    from ngsld_tpu_torch.parallel.strip_ind import strip_tiles_ind
+    from ngsld_tpu_torch.parallel.sweep import compute_block_ind
+    dev = torch.device("cuda", 0)
+    gn, sidx, maf = _table(MAIN_I, 4_096, 65_536, 5, torch.float32, dev)
+    eg = gn[..., 1] + 2 * gn[..., 2]
+    s_args, live, _ = _strip_case(MAIN_I, STRIP_S, IND_STRIP_TILES, 5, dev)
+    store = dist.TCPStore(mesh.HOST, 0, 1, True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=120))
+    m = mesh.connect(0, 1, 1, 1, dev, 1, store)
+    try:
+        if m.backend != "nccl":
+            raise AssertionError(f"world 1 on a card: backend {m.backend}")
+        torch.cuda.synchronize()
+        (fm, im), secs = _timed(lambda: compute_block_ind(
+            gn, eg, maf, sidx, True, m))
+        torch.cuda.synchronize()
+        n_gather = m.allreduces
+        t0 = time.perf_counter()
+        s_out = strip_tiles_ind(*s_args, n_ind=MAIN_I, i_start=0, mesh=m,
+                                ignore_miss=True)
+        torch.cuda.synchronize()
+        s_secs = time.perf_counter() - t0
+    finally:
+        mesh.teardown()
+
+    def hold(label, f, r2p, it, nu, f_r, r2p_r, it_r, nu_r):
+        same = it == it_r
+        if not (np.array_equal(nu, nu_r) and np.abs(it - it_r).max() <= 1
+                and same.mean() > 0.999):
+            raise AssertionError(f"9d {label}: nIter differs at "
+                                 f"{(~same).sum()}, or n_used differs")
+        fin, rfin = np.isfinite(f_r), np.isfinite(r2p_r)
+        err_f = float(np.abs(f - f_r)[same][fin[same]].max())
+        err_r = float(np.abs(r2p - r2p_r)[rfin].max())
+        if not (np.array_equal(np.isfinite(f), fin) and err_f <= 3e-5
+                and np.array_equal(np.isfinite(r2p), rfin)
+                and err_r <= 2e-5):
+            raise AssertionError(f"9d {label}: max|df| {err_f}, max|dr2p| "
+                                 f"{err_r}")
+        return int(same.sum()), len(same), err_f, err_r
+
+    ref_fm, ref_im = compute.compute_block(gn, eg, maf, sidx, True)
+    fm, im, ref_fm, ref_im = (t.cpu().numpy().astype(np.float64)
+                              for t in (fm, im, ref_fm, ref_im))
+    g = hold("gather", fm[:, 1:], fm[:, 0], im[:, 0], im[:, 1],
+             ref_fm[:, 1:], ref_fm[:, 0], ref_im[:, 0], ref_im[:, 1])
+    print(f"  9d: the --shard_ind gather step at world size 1 over NCCL on "
+          f"the card, {sidx.shape[1]} pairs x {MAIN_I} (--ignore_miss_data): "
+          f"{n_gather} all-reduces, {secs:.3f} s (the group's first "
+          f"collective included); against compute_block (pair_em.cu): "
+          f"n_used exact, nIter equal at {g[0]} of {g[1]} pairs (the rest "
+          f"within 1), max|df| {g[2]:.3e} where equal, max|dr2p| "
+          f"{g[3]:.3e} [{card}]")
+    k_out = strip_em(*s_args, n_ind=MAIN_I, ignore_miss=True)
+    f, r2p, it, nu = (t.cpu().numpy() for t in s_out)
+    f_k, r2p_k, it_k, nu_k = (t.cpu().numpy() for t in k_out)
+    fl = np.moveaxis(f, 1, -1)[live]
+    fkl = np.moveaxis(f_k, 1, -1)[live]
+    st = hold("strip", fl, r2p[live], it[live], nu[live], fkl, r2p_k[live],
+              it_k[live], nu_k[live])
+    print(f"  9d: the --shard_ind strip step at world size 1 over NCCL, "
+          f"{IND_STRIP_TILES} all-pairs tiles x {MAIN_I} (--ignore_miss_data,"
+          f" {int(live.sum())} live cells): {m.allreduces - n_gather} "
+          f"all-reduces, {s_secs:.3f} s; against strip_em.cu on the live "
+          f"cells: n_used exact, nIter equal at {st[0]} of {st[1]} (the rest "
+          f"within 1), max|df| {st[2]:.3e} where equal, max|dr2p| "
+          f"{st[3]:.3e} [{card}]")
+
+
+def phase_shard(tmp, card, real, large):
+    """Phase 9: the block engine on two ranks sharing the card (gloo),
+    started through launcher variables: 9a --shard 2 on phase 5's gather
+    cell, 9b --shard 2 on its strip cell, 9c --shard_ind 2 on phase 5b's
+    2,048 x 4,000 file (sampled: the gather step; dense: the strip step),
+    9d the two --shard_ind steps over NCCL at world size 1."""
+    import torch
+    d = os.path.join(tmp, "shard")
+    os.makedirs(d, exist_ok=True)
+    print(f"  two ranks on {torch.cuda.device_count()} card(s): the device "
+          "collectives run over gloo (walls measure the path on one shared "
+          "card, not scaling)")
+
+    # ---- 9a: --shard 2, the 10,000 x 100 gather cell
+    one = _read_lines(os.path.join(tmp, "real", "cut_gather.ld"))
+    n_blocks = real["gather_blocks"]
+    out = os.path.join(d, "gather.ld")
+    wall, launches, tims = _launch_ranks(
+        real["gather_argv"] + ["--shard", "2"], out, 2, "9a",
+        NGSLD_BLOCK_STRIP="0")
+    _only(launches, "pair_em", n_blocks, "9a")
+    eq, near = _same_pairs(one, _read_lines(out), "9a")
+    rungs = [{k: v for k, v in t["counters"].items() if k.startswith("rung_")}
+             for t in tims]
+    if near and all(rg == {"rung_gather": n_blocks} for rg in rungs):
+        raise AssertionError(f"9a: {near} rows differ though both ranks' "
+                             "halves took the whole block's rung")
+    print(f"  9a --shard 2, {GATHER_S} x {REAL_I} gather: {len(one) - 1} "
+          f"rows, the pair set of the one-device run, {eq} rows byte-equal, "
+          f"{near} within the f32 contract; pair_em.cu {n_blocks} launches a "
+          f"rank (= blocks); wall {wall:.3f} s (two new processes) [{card}]")
+    _rank_lines(launches, tims, ("pair_em",))
+
+    # ---- 9b: --shard 2, the 25k x 100 strip cell
+    argv = real["argv"][:real["argv"].index("--verbose")] + ["--verbose", "0"]
+    one = _read_lines(os.path.join(tmp, "real", "prof.ld"))
+    out = os.path.join(d, "strip.ld")
+    wall, launches, tims = _launch_ranks(argv + ["--shard", "2"], out, 2,
+                                         "9b", NGSLD_BLOCK_STRIP=None)
+    chunks = tims[0]["counters"]["blocks_computed"]
+    _only(launches, "strip_em", chunks, "9b")
+    rows = _read_lines(out)
+    eq, near = _same_pairs(one, rows, "9b")
+    step = max(1, (len(rows) - 1) // 1000)
+    n = _sample_vs_strict(types.SimpleNamespace(kept=rows[:1] + rows[1::step]),
+                          real["sim"], real["pars"])
+    print(f"  9b --shard 2, {REAL_S} x {REAL_I} strip: {len(rows) - 1} rows, "
+          f"the pair set of the one-device run, {eq} byte-equal, {near} within "
+          f"the f32 contract, {n} sampled rows within it against strict; "
+          f"strip_em.cu {chunks} launches a rank (= chunks) on its tiles; "
+          f"wall {wall:.3f} s (two new processes) [{card}]")
+    _rank_lines(launches, tims, ("strip_em",))
+
+    # ---- 9c: --shard_ind 2 on the 2,048 x 4,000 file, sampled and dense
+    sampled = ["--rnd_sample", "0.1", "--seed", "12345"]
+    for name, extra, count in (("sampled", sampled, "ind_blocks"),
+                               ("dense", [], "ind_strip_chunks")):
+        argv = large["argv_for"](ROWS_I, BIG_S, 128, extra)
+        argv = argv[:argv.index("--verbose")] + ["--verbose", "0",
+                                                 "--precision", "f32"]
+        ref = os.path.join(d, f"ind1_{name}.ld")
+        _zero_launches()
+        (rc, err), wall1 = _timed(lambda: _cli(argv + ["--out", ref]))
+        if rc != 0:
+            raise AssertionError(f"9c {name} --shard_ind 1: rc {rc}\n"
+                                 + err[-3000:])
+        out = os.path.join(d, f"ind2_{name}.ld")
+        wall, launches, tims = _launch_ranks(argv + ["--shard_ind", "2"],
+                                             out, 2, f"9c_{name}")
+        _only(launches, None, 0, f"9c {name}")
+        c = tims[0]["counters"]
+        if not c.get(count) or c[count] != c["blocks_computed"]:
+            raise AssertionError(f"9c {name}: counters {c}")
+        rows = _read_lines(out)
+        eq, near = _same_pairs(_read_lines(ref), rows, f"9c {name}")
+        print(f"  9c --shard_ind 2, {BIG_S} x {ROWS_I} {name} ({count}: "
+              f"{c[count]}): {len(rows) - 1} rows, the pair set of the "
+              f"--shard_ind 1 run, {eq} byte-equal, {near} within the f32 "
+              f"contract; no kernel launched (the step is torch operations "
+              f"around the all-reduce); wall {wall:.3f} s (two new "
+              f"processes), --shard_ind 1 in this process {wall1:.3f} s "
+              f"[{card}]")
+        _rank_lines(launches, tims, ())
+
+    # ---- 9d: over NCCL, world size 1; 9a over NCCL needs two cards
+    _ind_steps_nccl(card)
+    if torch.cuda.device_count() < 2:
+        print("  9a over NCCL: not run (one card on this box: two ranks "
+              "would share it, which NCCL refuses)")
+    else:
+        out = os.path.join(d, "gather_nccl.ld")
+        wall, launches, tims = _launch_ranks(
+            real["gather_argv"] + ["--shard", "2"], out, 2, "9a_nccl",
+            NGSLD_BLOCK_STRIP="0")
+        _only(launches, "pair_em", n_blocks, "9a over NCCL")
+        eq, near = _same_pairs(_read_lines(os.path.join(
+            tmp, "real", "cut_gather.ld")), _read_lines(out), "9a over NCCL")
+        print(f"  9a over NCCL, one card a rank: {eq} rows byte-equal, {near} "
+              f"within the f32 contract; wall {wall:.3f} s [{card}]")
+        _rank_lines(launches, tims, ("pair_em",))
+
+
 def main(argv=()) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3013,6 +3361,25 @@ def main(argv=()) -> int:
         print("chip_smoke --gather-only: "
               + ("PASS" if all(results) else "FAILED"))
         return 0 if all(results) else 1
+    if "--shard-only" in argv:
+        # the multi-device block engine alone: build, the one-device runs
+        # it is held against (phases 5, 5b, 6), phase 9; prints neither the
+        # kernels line nor the ok line
+        with tempfile.TemporaryDirectory(prefix="ngsld_chip_smoke_") as tmp:
+            card = _phase(results, "1 environment", phase_env)
+            _phase(results, "2 build", phase_build)
+            real = _phase(results, "5 real size",
+                          lambda: phase_real(tmp, card))
+            large = _phase(results, "5b large cohort through the CLI",
+                           lambda: phase_large(tmp, card))
+            if real is not None and large is not None:
+                _phase(results, "6 device idle share",
+                       lambda: phase_idle(tmp, card, real))
+                _phase(results, "9 the block engine on two ranks",
+                       lambda: phase_shard(tmp, card, real, large))
+        print("chip_smoke --shard-only: "
+              + ("PASS" if all(results) else "FAILED"))
+        return 0 if all(results) and len(results) == 6 else 1
     if "--ring-only" in argv:
         # a look at the ring alone: build, phase 7 (with phase 5b's dense
         # run for R2); prints neither the kernels line nor the ok line
@@ -3046,6 +3413,9 @@ def main(argv=()) -> int:
         if real is not None:
             _phase(results, "8 --profile, the LD tools and extras/",
                    lambda: phase_profile_tools(tmp, card, real))
+        if real is not None and large is not None:
+            _phase(results, "9 the block engine on two ranks",
+                   lambda: phase_shard(tmp, card, real, large))
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1

@@ -183,6 +183,12 @@ class _Checkpoint:
     def done(self, i: int) -> bool:
         return os.path.exists(self.path(i))
 
+    def done_set(self) -> set:
+        """The blocks committed so far, by index (one listing of the dir):
+        what a multi-device run's rank 0 sends every rank at resume."""
+        return {int(p[5:11]) for p in os.listdir(self.dir)
+                if p.startswith("part_") and p.endswith(".tsv")}
+
     def open_block(self, i: int):
         return open(self.path(i) + ".tmp", "wb")
 

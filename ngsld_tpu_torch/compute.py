@@ -1,6 +1,9 @@
-"""Device steps of the sweep, single device (ngsld_tpu/compute.py): the
-gathered-pair block step (:14-28, 64-123), with the ladder that picks its
-EM kernel by cohort size (:99-117), and the strip-chunk steps (:139-172).
+"""Device steps of the sweep (ngsld_tpu/compute.py): the gathered-pair
+block step (:14-28, 64-123), with the ladder that picks its EM kernel by
+cohort size (:99-117), and the strip-chunk steps (:139-172). On several
+devices (--shard, :125-136 and :174-208) each 'pairs' row runs the same
+steps on its share of a block's pairs or of a chunk's tiles
+(split_bounds, strip_shares); --shard_ind's steps are in parallel/.
 
 The site tables stay on the device; per block only the (2, P) index (or
 the chunk's tile list and sel) crosses over, and only (r2p, hap freqs)
@@ -11,11 +14,13 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from .kernels.pair_em import GATHER_KERNELS, pick_gather_kernel
 from .kernels.strip_em import strip_em_compact, strip_em_flat
 from .ops.stats import pearson_r2
+from .plan.strips import TA, TB
 
 
 # bytes of one gathered E[G] operand of the Pearson r2 step
@@ -76,3 +81,26 @@ def strip_compute_fn(n_ind: int, ignore_miss: bool, use_i16: bool):
     return functools.partial(strip_em_compact, n_ind=n_ind,
                              ignore_miss=ignore_miss, use_i16=use_i16,
                              slim_im=not ignore_miss)
+
+
+def split_bounds(n: int, parts: int) -> list:
+    """Contiguous shares of n items over `parts` rows, in row order: row p
+    takes [bounds[p], bounds[p + 1])."""
+    return [n * p // parts for p in range(parts + 1)]
+
+
+def strip_shares(n_tiles: int, sel: np.ndarray, parts: int) -> list:
+    """A strip chunk's tiles split over `parts` rows (split_bounds): for
+    each row (t0, t1, pos, sel_loc), pos the places in sel of the cells
+    that fall in its tiles, sel_loc those cells' flat indices among its
+    own tiles. Each row compacts its own tiles' cells, so no uncompacted
+    tile leaves a device; rank 0 puts row p's rows at pos."""
+    cells = TA * TB
+    tile = sel // cells
+    b = split_bounds(n_tiles, parts)
+    out = []
+    for p in range(parts):
+        pos = np.flatnonzero((tile >= b[p]) & (tile < b[p + 1]))
+        out.append((b[p], b[p + 1], pos,
+                    (sel[pos] - b[p] * cells).astype(np.int32)))
+    return out

@@ -1,4 +1,4 @@
-"""PyTorch engine entry point: the default single-device run.
+"""PyTorch engine entry point.
 
 Device: the CUDA card (the EM then runs in the hand-written kernels),
 unless the caller asks for the CPU with NGSLD_PLATFORM=cpu (the kernels'
@@ -7,18 +7,28 @@ the run is refused with a StrictError: the engine never picks the CPU by
 itself. Precision mirrors ngsld_tpu/engine.py::_resolve_precision with
 CUDA in the TPU's place: auto is f32 on CUDA and f64 on the CPU.
 
-The sweep runs on one device, as gathered pair blocks or as dense strip
-tiles (engine_block picks; NGSLD_BLOCK_STRIP=1/0 forces), or with --ring
-as the site-sharded ring sweep on one device (engine_ring; a band that
-fits inside one ring step's partner sub-block runs the block engine
-instead, with a log line saying so). --shard/--shard_ind resolving to
-more than one device (the multi-device ring among them) are not ported
-yet and raise StrictError naming them.
+The sweep runs as gathered pair blocks or as dense strip tiles
+(engine_block picks; NGSLD_BLOCK_STRIP=1/0 forces), or with --ring as the
+site-sharded ring sweep on one device (engine_ring; a band that fits
+inside one ring step's partner sub-block runs the block engine instead,
+with a log line saying so).
+
+--shard N / --shard_ind M (ngsld_tpu/engine.py:80-98) run the block
+engine on N x M devices, one process (rank) each, over torch.distributed
+(parallel/mesh.py): each block's pairs or each chunk's tiles split over
+the N 'pairs' rows, the cohort over the M ranks of a row. The devices are
+the node's cards, the launched world under a launcher (torchrun), and on
+the CPU (NGSLD_PLATFORM=cpu) any count of processes. --shard 0 takes the
+devices --shard_ind leaves (on the CPU, one row). Without a launcher this
+process becomes rank 0 and starts the other ranks itself. Rank 0 alone
+loads the input, writes the rows and the checkpoint; the output is the
+one-device run's TSV, rows in the same order. The ring across devices is
+not ported yet and is refused.
 
 --profile DIR records the run with torch.profiler (CPU activity, plus
 CUDA activity on the card; no shapes, no stacks) from the resolved device
 to the end of the run, also one that raises, and writes it into DIR as
-one Chrome trace under tensorboard_trace_handler's naming
+one Chrome trace a rank under tensorboard_trace_handler's naming
 (<host>_<pid>.<time_ns>.pt.trace.json), which TensorBoard and Perfetto
 open. The JAX package writes an XPlane trace there instead; the flag
 keeps its meaning, a profiler trace of the run in DIR, not its format.
@@ -34,17 +44,20 @@ import torch
 from .config import Params
 from .engine_block import _run_torch_body
 from .engine_ring import RingNarrowBand, _run_torch_ring
+from .parallel import mesh
 from .strict import StrictError
 from .utils.logging import RunLog, echo_config
 
 
-def _resolve_device() -> torch.device:
+def _resolve_device(env=None) -> torch.device:
     if os.environ.get("NGSLD_PLATFORM") == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise StrictError(
             "device", "no CUDA device is available; the torch engine runs "
             "on the card unless NGSLD_PLATFORM=cpu asks for the CPU")
+    if env is not None:
+        return mesh.rank_device(False, env["local_rank"])
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -54,19 +67,35 @@ def _resolve_precision(precision: str, device: torch.device) -> str:
     return "f32" if device.type == "cuda" else "f64"
 
 
-def _refuse_unported(pars: Params, device: torch.device) -> None:
-    n_avail = torch.cuda.device_count() if device.type == "cuda" else 1
-    # --shard 0 means "all devices" (ngsld_tpu.engine.run_jax)
-    shard = pars.shard or n_avail // pars.shard_ind
-    if shard != 1 or pars.shard_ind != 1:
-        what = ("the multi-device ring is" if pars.ring
-                else "multi-device sweeps are")
+def _resolve_shards(pars: Params, device: torch.device, env=None) -> int:
+    """Resolve --shard 0 once (the decomposition and so the checkpoint
+    fingerprint must not depend on the machine a run resumes on) and
+    return the world size, --shard x --shard_ind. The devices: the
+    launched world, the node's cards, or on the CPU any count."""
+    if env is not None:
+        n_avail = env["world"]
+    elif device.type == "cuda":
+        n_avail = torch.cuda.device_count()
+    else:
+        n_avail = None
+    m = pars.shard_ind
+    if pars.ring and (pars.shard or max(1, (n_avail or 1) // m)) * m > 1:
         raise StrictError(
-            "ring" if pars.ring else "shard",
-            f"--shard {pars.shard} x --shard_ind {pars.shard_ind} "
-            f"resolves to {max(shard, 1) * pars.shard_ind} devices; the torch "
-            f"engine runs on one device ({what} not ported)")
-    pars.shard = 1
+            "ring", f"--shard {pars.shard} x --shard_ind {m} resolves to "
+            "more than one device; the torch engine's ring runs on one "
+            "device (the multi-device ring is not ported)")
+    if not pars.shard:
+        # the devices LEFT OVER after the individual axis takes its share
+        pars.shard = 1 if n_avail is None else n_avail // m
+        if not pars.shard:
+            raise StrictError("shard", f"--shard_ind {m} > {n_avail} devices")
+    if n_avail is not None and pars.shard * m > n_avail:
+        raise StrictError("shard", f"--shard {pars.shard} x --shard_ind "
+                          f"{m} > {n_avail} devices")
+    if env is not None and pars.shard * m != env["world"]:
+        raise StrictError("shard", f"--shard {pars.shard} x --shard_ind {m} "
+                          f"!= the launched world of {env['world']} ranks")
+    return pars.shard * m
 
 
 def _start_profile(trace_dir: str, device: torch.device):
@@ -81,25 +110,27 @@ def _start_profile(trace_dir: str, device: torch.device):
     return prof
 
 
-def run_torch(pars: Params, out_fh=None) -> None:
-    device = _resolve_device()
-    prec = _resolve_precision(pars.precision, device)
-    _refuse_unported(pars, device)
-    if device.type == "cuda":
-        # Pearson r2 is element-wise (no matmul), but no f32 product of
-        # this engine may ever run in TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    log = RunLog(pars.verbose)
-    if pars.verbose >= 1:
+def _run_rank(pars: Params, out_fh, prec: str, device: torch.device,
+              m=None) -> None:
+    """One rank's run (the whole run on one device): log, --profile, the
+    output (rank 0 only) and the sweep."""
+    rank = 0 if m is None else m.rank
+    log = RunLog(pars.verbose, rank=rank)
+    if pars.verbose >= 1 and rank == 0:
         echo_config(pars, f"(torch, {device}, {prec})")
+    if m is not None:
+        log.log(1, f"==> {m.world} ranks ({m.shard} 'pairs' x {m.shard_ind} "
+                   f"'ind'), device collectives over {m.backend}"
+                   + (f"; {m.world} ranks share "
+                      f"{torch.cuda.device_count()} card(s)"
+                      if m.shared else ""))
 
-    # one trace for the whole run, the auto-routed ring's block run too;
-    # stop() writes it, also when the run raises
+    # one trace a rank for the whole run, the auto-routed ring's block run
+    # too; stop() writes it, also when the run raises
     prof = _start_profile(pars.profile, device) if pars.profile else None
     close = False
     try:
-        if out_fh is None:
+        if out_fh is None and rank == 0:
             if pars.out is not None:
                 out_fh = open(pars.out, "wb")
                 close = True
@@ -118,9 +149,36 @@ def run_torch(pars: Params, out_fh=None) -> None:
                            "to force the ring)")
                 _run_torch_body(pars, out_fh, log, prec, device)
         else:
-            _run_torch_body(pars, out_fh, log, prec, device)
+            _run_torch_body(pars, out_fh, log, prec, device, m)
     finally:
         if close:
             out_fh.close()
         if prof is not None:
             prof.stop()
+
+
+def run_torch(pars: Params, out_fh=None) -> None:
+    env = mesh.launched()
+    device = _resolve_device(env)
+    prec = _resolve_precision(pars.precision, device)
+    world = _resolve_shards(pars, device, env)
+    if device.type == "cuda":
+        # Pearson r2 is element-wise (no matmul), but no f32 product of
+        # this engine may ever run in TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if world == 1:
+        _run_rank(pars, out_fh, prec, device)
+    elif env is not None:
+        # a launcher started every rank: join its group
+        m = mesh.connect(env["rank"], world, pars.shard, pars.shard_ind,
+                         device, env["local_world"])
+        try:
+            _run_rank(pars, out_fh if m.rank == 0 else None, prec, device, m)
+        finally:
+            mesh.teardown()
+    else:
+        if device.type == "cuda":
+            device = mesh.rank_device(False, 0)
+        with mesh.start_ranks(pars, prec, device) as m:
+            _run_rank(pars, out_fh, prec, device, m)

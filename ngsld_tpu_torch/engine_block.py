@@ -29,6 +29,8 @@ with its error: there is no retry on the gather sweep.
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import math
 import os
 import queue
@@ -42,11 +44,14 @@ from . import compute, strict
 from .checkpoint import _Checkpoint
 from .hostcols import _prefetch_blocks, _unpack
 from .io.writer import RowWriter
+from .kernels.pair_em import pick_gather_kernel
 from .kernels.strip_em import strip_i_align, strip_streamed, strip_tables
 from .loaders import _StreamedGLLoader, _StreamedTextLoader
 from .native import (LabelBlob, format_rows_derive, get_lib,
                      make_labels_blob)
 from .ops.preprocess import preprocess
+from .parallel.strip_ind import strip_compute_ind
+from .parallel.sweep import compute_block_ind
 from .plan.band import PairBlock, band_limits, iter_pair_blocks
 from .plan.strips import TA, TB, strip_plan
 from .refine import (StrictRefiner, degenerate_tiers, derive_columns_f64,
@@ -58,10 +63,11 @@ from .utils.signals import GracefulStop
 _PENDING = object()
 
 
-def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
-    dt = torch.float64 if prec == "f64" else torch.float32
+def _load(pars, log, prec: str, device: torch.device, get_refiner):
+    """Read, upload and preprocess the input; MAF to the host with its
+    knife-edge sites repaired. -> (gn_d, maf_d, eg_d, maf, pos_dist,
+    labels)."""
     np_dt = np.float64 if prec == "f64" else np.float32
-
     loader = None
     raw_gl = False   # the loader delivers UNNORMALISED records
     if _StreamedGLLoader.applicable(pars):
@@ -114,14 +120,6 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
             # np.array copies: knife-edge refinement writes into it
             maf = np.array(maf_d.cpu().numpy(), np.float64)
 
-    refiner = None
-
-    def get_refiner():
-        nonlocal refiner
-        if refiner is None:
-            refiner = StrictRefiner(pars)
-        return refiner
-
     # pair-set stability: sites whose device MAF sits within precision
     # noise of min_maf get the bit-exact strict MAF, so `maf < min_maf`
     # (ngsLD.cpp:264,270) can never flip a band vs the reference
@@ -137,8 +135,85 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
         for s in range(min(10, pars.n_sites)):
             log.log(7, f"{s}\t{labels[s]}\t{maf[s]:f} "
                        f"({gn0[s,0]:f} {gn0[s,1]:f} {gn0[s,2]:f})")
+    return gn_d, maf_d, eg_d, maf, pos_dist, labels
 
-    chunk = int(pars.chunk_pairs)
+
+def _share(m, pars, dt, device, tabs):
+    """Rank 0's device tables (gn, maf, eg) and the plan's host inputs
+    (the repaired MAF, pos_dist) on every rank: the host arrays over the
+    host group, the tables broadcast over the default group (the
+    reference replicates them with device_put)."""
+    S, I = pars.n_sites, pars.n_ind
+    host = m.broadcast_object(None if m.rank else (tabs[3], tabs[4]))
+    if m.rank:
+        tabs = [torch.empty((S, I, 3), dtype=dt, device=device),
+                torch.empty(S, dtype=dt, device=device),
+                torch.empty((S, I), dtype=dt, device=device)]
+    else:
+        assert all(t.dtype == dt for t in tabs[:3])
+    gn_d, maf_d, eg_d = (m.broadcast(t.contiguous()) for t in tabs[:3])
+    return gn_d, maf_d, eg_d, host[0], host[1]
+
+
+def _assemble(m, fm, im, spec):
+    """Rank 0's rows of a block or chunk: its own piece (row 0's) and the
+    other rows' pieces, received in row order. spec[p] = (sending rank,
+    rows, places in the block's rows or None for row order)."""
+    pieces = [(fm, im)] + [tuple(m.recv_rows(src, n, (fm, im)))
+                           for src, n, _ in spec[1:]]
+    if spec[0][2] is None:
+        return (np.concatenate([p[0] for p in pieces]),
+                np.concatenate([p[1] for p in pieces]))
+    P = sum(n for _, n, _ in spec)
+    out_fm = np.empty((P,) + fm.shape[1:], fm.dtype)
+    out_im = np.empty((P,) + im.shape[1:], im.dtype)
+    for (pfm, pim), (_, _, pos) in zip(pieces, spec):
+        out_fm[pos], out_im[pos] = pfm, pim
+    return out_fm, out_im
+
+
+class _NoStop:
+    """GracefulStop's place on ranks other than 0: they stop when rank 0
+    ends them."""
+    stopped = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
+                    m=None):
+    """The block sweep on one device, or this rank's part of it on a mesh
+    (m, parallel.mesh.Mesh): rank 0 loads, formats and writes; every rank
+    walks the same plan and computes its share of each block or chunk."""
+    dt = torch.float64 if prec == "f64" else torch.float32
+    lead = m is None or m.rank == 0
+    n_shards = 1 if m is None else m.shard
+    shard_ind = 1 if m is None else m.shard_ind
+
+    refiner = None
+
+    def get_refiner():
+        nonlocal refiner
+        if refiner is None:
+            refiner = StrictRefiner(pars)
+        return refiner
+
+    tabs = (_load(pars, log, prec, device, get_refiner) if lead
+            else (None,) * 6)
+    gn_d, maf_d, eg_d, maf, pos_dist, labels = tabs
+    if m is not None:
+        with log.phase("Tables to every rank (broadcast from rank 0)"):
+            gn_d, maf_d, eg_d, maf, pos_dist = _share(
+                m, pars, dt, device, (gn_d, maf_d, eg_d, maf, pos_dist))
+
+    # every device receives the same share of a block (the reference's
+    # rounding, so the block decomposition and the checkpoint fingerprint
+    # match its run under the same flags)
+    chunk = -(-int(pars.chunk_pairs) // n_shards) * n_shards
 
     # ---- sweep-mode selection: dense strip-tile rectangles vs gathered
     # pair blocks (ngsld_tpu/engine_block.py:286-334). Auto rule:
@@ -171,9 +246,12 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
     if strip_mode:
         # past the resident kernel's cohort limit strip_em takes the
         # streamed kernel, and the tables pad the individual axis to its
-        # chunk
-        s_streamed = strip_streamed(pars.n_ind, device)
-        s_ialign = strip_i_align(pars.n_ind, device)
+        # chunk. With --shard_ind the step is parallel.strip_ind's (no
+        # kernel): the individual axis splits over the row in 8-aligned
+        # slices (ngsld_tpu/engine_block.py:342-345)
+        s_streamed = shard_ind == 1 and strip_streamed(pars.n_ind, device)
+        s_ialign = (8 * shard_ind if shard_ind > 1
+                    else strip_i_align(pars.n_ind, device))
         with log.phase("strip tables (device)"):
             pad = Sp_b - pars.n_sites
             s_ga, s_gb, s_ea, s_eb = strip_tables(
@@ -183,6 +261,16 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                 i_align=s_ialign)
             # the gather tables are dead weight in strip mode
             del gn_d, eg_d, maf_d
+            if shard_ind > 1:
+                # this rank's slice of every record: the standardization
+                # above used the whole cohort's moments
+                ipl = s_ga.shape[2] // shard_ind
+                i_start = m.ii * ipl
+                cut = slice(i_start, i_start + ipl)
+                s_ga, s_gb = (s_ga[:, :, cut].contiguous(),
+                              s_gb[:, cut].contiguous())
+                s_ea, s_eb = (s_ea[:, cut].contiguous(),
+                              s_eb[cut].contiguous())
         s_maf = torch.from_numpy(np.pad(
             np.asarray(maf, np.float32), (0, pad),
             constant_values=0.5)).to(device)
@@ -195,12 +283,20 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
         # real work, oversized groups split into <= GMAXT-tile pieces
         GMAXT = max(1, min(len(s_ta), int(os.environ.get(
             "NGSLD_STRIP_TILES", "256"))))
+        # --shard: a chunk's tiles split over the 'pairs' rows, so its
+        # tile budget is a whole multiple of them (the reference's rule)
+        GMAXT = -(-GMAXT // n_shards) * n_shards
         CTARGET = int(os.environ.get("NGSLD_STRIP_CTARGET", str(1 << 20)))
         TA_TB = TA * TB
         log.log(2, f"==> strip sweep: {len(s_ta)} tiles, chunk<= {GMAXT} "
                    f"tiles/{CTARGET} pairs, util {s_util:.2f}"
                    + (f", streamed kernel (I-chunk {s_ialign})"
                       if s_streamed else ""))
+    elif shard_ind > 1:
+        # the gather step for --shard_ind: this rank's slice of the cohort
+        ipl = pars.n_ind // shard_ind
+        cut = slice(m.ii * ipl, (m.ii + 1) * ipl)
+        gn_d, eg_d = gn_d[:, cut].contiguous(), eg_d[:, cut].contiguous()
 
     ckpt = None
     if pars.checkpoint:
@@ -216,30 +312,48 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                 extra["ic"] = s_ialign
         else:
             extra = {"chunk": chunk, "prec": prec}
-        ckpt = _Checkpoint(pars.checkpoint, pars, log, extra=extra)
-        # per-block RowWriters share one label blob (O(n_sites) to build)
-        if get_lib() is not None:
-            labels = LabelBlob(*make_labels_blob(labels))
-    writer = None
-    if ckpt is None:
-        writer = RowWriter(out_fh, labels, pars.extend_out)
-        writer.write_header()
-    fmt_rw = writer if writer is not None \
-        else RowWriter(None, labels, pars.extend_out)
+        if lead:
+            ckpt = _Checkpoint(pars.checkpoint, pars, log, extra=extra)
+            # per-block RowWriters share one label blob (O(n_sites))
+            if get_lib() is not None:
+                labels = LabelBlob(*make_labels_blob(labels))
+    # the blocks committed before this run, the same on every rank: a
+    # resume skips them all alike
+    done_set = ckpt.done_set() if ckpt is not None else set()
+    if m is not None and pars.checkpoint:
+        done_set = m.broadcast_object(done_set if lead else None)
+    writer = fmt_rw = None
+    if lead:
+        if ckpt is None:
+            writer = RowWriter(out_fh, labels, pars.extend_out)
+            writer.write_header()
+        fmt_rw = writer if writer is not None \
+            else RowWriter(None, labels, pars.extend_out)
 
-    def pull(bi, blk, dev_out, meta=None, flat_sel=None):
+    def pull(bi, blk, dev_out, meta=None, flat_sel=None, spec=None):
         """Stage 1: device results -> host numpy (waits for the block's
         kernels on the current stream). Compacted strip chunks and gather
         blocks bring exactly their live rows; flat strip chunks (flat_sel)
         bring their whole tile rectangle and the sel permutation applies
-        here as a numpy take."""
+        here as a numpy take. On a mesh (spec: each 'pairs' row's sending
+        rank, rows and their places) the other rows' pieces arrive here,
+        each from the first rank of its row, and join rank 0's own."""
         t0 = time.perf_counter()
         fm = dev_out[0].cpu().numpy()
         im = dev_out[1].cpu().numpy()
         if flat_sel is not None:
             fm, im = fm[flat_sel], im[flat_sel]
         log.count_time("sweep: result pull", time.perf_counter() - t0)
+        if spec is not None:
+            fm, im = _assemble(m, fm, im, spec)
         return bi, blk, fm, im, meta
+
+    def send(bi, blk, dev_out, meta=None, flat_sel=None, spec=None):
+        """The pull stage of a rank other than 0: the first rank of each
+        row sends its piece to rank 0; the others' rows are the same."""
+        if m.ii == 0:
+            m.send_rows([dev_out[0].cpu().numpy(),
+                         dev_out[1].cpu().numpy()])
 
     pending = []   # pulled chunks of an in-flight split anchor group
 
@@ -427,25 +541,43 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
         t.start()
         return t
 
-    stages = [_stage(emit_q, fmt_q, pull, "ngsld-pull"),
-              _stage(fmt_q, write_q, fmt, "ngsld-fmt"),
-              _stage(write_q, None, write, "ngsld-write")]
+    if lead:
+        stages = [_stage(emit_q, fmt_q, pull, "ngsld-pull"),
+                  _stage(fmt_q, write_q, fmt, "ngsld-fmt"),
+                  _stage(write_q, None, write, "ngsld-write")]
+    else:
+        stages = [_stage(emit_q, None, send, "ngsld-send")]
+    # the ranks' pair plans must agree: a digest of every block's pairs,
+    # compared at the end
+    digest = hashlib.sha256()
     n_blocks = 0
     interrupted = False
-    with log.phase("compute: banded pair sweep"), GracefulStop(log) as gs:
+    with log.phase("compute: banded pair sweep"), \
+            (GracefulStop(log) if lead else _NoStop()) as gs:
         if strip_mode:
             use_i16 = pars.n_ind <= 32767
-            strip_fn = compute.strip_compute_fn(
-                pars.n_ind, pars.ignore_miss_data, use_i16)
+            if shard_ind > 1:
+                # ('pairs', 'ind'): parallel.strip_ind's step, one
+                # all-reduce over the row an EM iteration
+                strip_fn = functools.partial(
+                    strip_compute_ind, n_ind=pars.n_ind, i_start=i_start,
+                    mesh=m, ignore_miss=pars.ignore_miss_data,
+                    use_i16=use_i16)
+                log.log(2, "==> strip sweep: ('pairs', 'ind') mesh, one "
+                           "all-reduce over 'ind' an EM iteration")
+            else:
+                strip_fn = compute.strip_compute_fn(
+                    pars.n_ind, pars.ignore_miss_data, use_i16)
             # flat cell-major emission for near-full chunks: one relayout
             # on the device and a host-side numpy take in the (pipelined)
             # pull stage instead of the device sel gather. Pull bytes then
             # scale with CELLS, so only chunks with live/cells >= the
-            # threshold qualify. NGSLD_STRIP_EMIT=compact|flat|auto.
+            # threshold qualify. NGSLD_STRIP_EMIT=compact|flat|auto. One
+            # device only (:724-725).
             strip_flat_fn = None
             flat_util = 1.1
             emit_mode = os.environ.get("NGSLD_STRIP_EMIT", "auto")
-            if emit_mode != "compact":
+            if emit_mode != "compact" and m is None:
                 strip_flat_fn = compute.strip_flat_fn(
                     pars.n_ind, pars.ignore_miss_data, use_i16)
                 flat_util = (-1.0 if emit_mode == "flat" else float(
@@ -550,24 +682,26 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                     if gs.stopped or emit_err:
                         interrupted = not emit_err
                         break
+                    if m is not None:
+                        digest.update(blk.s1.tobytes() + blk.s2.tobytes())
                     if bi <= skip_until:
                         log.count("blocks_resumed")
                         continue
-                    if ckpt is not None and bi > run_last:
-                        if rem and ckpt.done(bi + rem):
+                    if pars.checkpoint and bi > run_last:
+                        if rem and bi + rem in done_set:
                             # the whole split group was committed as one
                             # merged shard at its final bi; the earlier
                             # bis are empty placeholders: (re)commit any
                             # the writer did not reach
                             for j in range(bi, bi + rem):
-                                if not ckpt.done(j):
+                                if lead and not ckpt.done(j):
                                     with ckpt.open_block(j):
                                         pass
                                     ckpt.commit_block(j)
                             skip_until = bi + rem
                             log.count("blocks_resumed")
                             continue
-                        if not rem and ckpt.done(bi):
+                        if not rem and bi in done_set:
                             log.count("blocks_resumed")
                             continue
                     if rem and bi > run_last:
@@ -593,6 +727,18 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                     use_flat = (strip_flat_fn is not None
                                 and P >= flat_util * gc * TA_TB)
                     t0 = time.perf_counter()
+                    spec = None
+                    if m is not None:
+                        # this row's tiles and the cells of sel in them;
+                        # rank 0 puts every row's rows at their places
+                        shares = compute.strip_shares(gc, sel, n_shards)
+                        t_lo, t_hi, _, sel = shares[m.pi]
+                        ta_slots = ta_slots[t_lo:t_hi]
+                        tb_slots = tb_slots[t_lo:t_hi]
+                        spec = [(p * shard_ind, len(sh[2]), sh[2])
+                                for p, sh in enumerate(shares)]
+                        if shard_ind > 1:
+                            log.count("ind_strip_chunks")
                     # exactly the chunk's tiles launch and, compacted,
                     # exactly P rows come back (no padding to GMAXT tiles
                     # or to a sel capacity)
@@ -608,7 +754,7 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                     log.count_time("sweep: dispatch",
                                    time.perf_counter() - t0)
                     emit_q.put((bi, blk, dev_out, meta,
-                                sel if use_flat else None))
+                                sel if use_flat else None, spec))
             finally:
                 emit_q.put(None)
                 for t in stages:
@@ -631,7 +777,9 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                     if gs.stopped or emit_err:
                         interrupted = not emit_err
                         break
-                    if ckpt is not None and ckpt.done(bi):
+                    if m is not None:
+                        digest.update(blk.s1.tobytes() + blk.s2.tobytes())
+                    if bi in done_set:
                         log.count("blocks_resumed")
                         continue
                     P = len(blk.s1)
@@ -641,14 +789,34 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                         log.log(3, f"> Block {bi}: anchors "
                                    f"{blk.s1[0]}..{blk.s1[-1]}, {P} pairs")
                     t0 = time.perf_counter()
+                    # this row's contiguous piece of the block (all of it
+                    # on one device)
+                    bnd = compute.split_bounds(P, n_shards)
+                    lo_p = bnd[0 if m is None else m.pi]
+                    hi_p = bnd[1 if m is None else m.pi + 1]
+                    spec = None if m is None else [
+                        (p * shard_ind, bnd[p + 1] - bnd[p], None)
+                        for p in range(n_shards)]
                     # one fused (2, P) index upload per block; exactly P pairs
                     # launch and P rows come back (no padding quantum)
-                    sidx = torch.from_numpy(
-                        np.stack([blk.s1, blk.s2]).astype(np.int32)).to(device)
-                    dev_out = compute.compute_block(
-                        gn_d, eg_d, maf_d, sidx, pars.ignore_miss_data)  # async
+                    sidx = torch.from_numpy(np.stack(
+                        [blk.s1[lo_p:hi_p], blk.s2[lo_p:hi_p]]).astype(
+                            np.int32)).to(device)
+                    if shard_ind > 1:
+                        log.count("ind_blocks")
+                        dev_out = compute_block_ind(
+                            gn_d, eg_d, maf_d, sidx, pars.ignore_miss_data, m)
+                    else:
+                        # the ladder's rung for this piece, as compute_block
+                        # picks it
+                        log.count("rung_" + pick_gather_kernel(
+                            pars.n_ind, gn_d.element_size(), device,
+                            hi_p - lo_p))
+                        dev_out = compute.compute_block(
+                            gn_d, eg_d, maf_d, sidx,
+                            pars.ignore_miss_data)  # async
                     log.count_time("sweep: dispatch", time.perf_counter() - t0)
-                    emit_q.put((bi, blk, dev_out))
+                    emit_q.put((bi, blk, dev_out, None, None, spec))
             finally:
                 # always shut the pipeline down, even when the loop raises:
                 # stages blocked on get() would otherwise pin device buffers
@@ -666,6 +834,18 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device):
                    f"completed blocks are flushed. {hint}")
         raise SystemExit(130)
 
+    if m is not None:
+        # every rank walked the same plan, block for block
+        digests = m.all_gather_object(digest.hexdigest())
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the ranks' pair plans differ over "
+                               f"{n_blocks} blocks: digests {digests}")
+        log.log(2, f"==> pair plan: the same {n_blocks} blocks on all "
+                   f"{m.world} ranks (sha256 {digests[0][:16]})")
+        log.count("plan_ranks_agree", m.world)
+        log.count("ind_allreduces", m.allreduces)
+        log.count_time("mesh: 'ind' all-reduce", m.allreduce_s)
+        log.count_time("mesh: pieces to rank 0", m.gather_s)
     if ckpt is not None:
         with log.phase("Merging checkpoint shards"):
             hdr = strict.header_line(pars.extend_out)

@@ -393,7 +393,17 @@ def strip_em_compact(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta,
         ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
         n_ind=n_ind, iter_cap=iter_cap, ignore_miss=ignore_miss,
         ta_sz=ta_sz, tb_sz=tb_sz)
-    n, cells = ta.shape[0], ta_sz * tb_sz
+    return compact_tiles(f, r2p, nit, nu, sel, slim_im=slim_im,
+                         use_i16=use_i16, ignore_miss=ignore_miss)
+
+
+def compact_tiles(f, r2p, nit, nu, sel, *, slim_im: bool, use_i16: bool,
+                  ignore_miss: bool):
+    """The rows sel (C,) of a batch of tile outputs (strip_em's f, r2p,
+    n_iter, n_used): fm (C, 5) = [r2p, f00, f01, f10, f11] and im (see
+    _imat), in sel's order."""
+    n, ta_sz, tb_sz = r2p.shape
+    cells = ta_sz * tb_sz
     sel = sel.long()
     # f is (n, 4, TA*TB): pick (tile, :, cell) without a full relayout
     ff = f.view(n, 4, cells)[sel // cells, :, sel % cells]

@@ -38,9 +38,10 @@ def _isum(t, i_chunk):
     return acc
 
 
-def _em_update(f, gl1, gl2, include, inv_x, i_chunk=None):
-    """One EM step for all pairs. f: (P,4); gl1/gl2: (P,I,3);
-    include: (P,I) float mask; inv_x: (P,) = 1/n_used."""
+def em_sums(f, gl1, gl2, include, i_chunk=None):
+    """The four sums over individuals of one EM step,
+    sum_i include_i * D_k[i] / s[i], each (P,). f: (P,4); gl1/gl2:
+    (P,I,3); include: (P,I) float mask."""
     D = []
     for (a1k, a2k) in _KBITS:
         d = None
@@ -53,9 +54,31 @@ def _em_update(f, gl1, gl2, include, inv_x, i_chunk=None):
         t = f[:, k, None] * D[k]
         s = t if s is None else s + t
     r = include / s  # masked reciprocal; excluded inds contribute 0
-    f_new = [f[:, k] * _isum(D[k] * r, i_chunk) * inv_x for k in range(4)]
+    return [_isum(D[k] * r, i_chunk) for k in range(4)]
+
+
+def em_apply(f, S, inv_x):
+    """The EM update from the step's sums S (four (P,) tensors):
+    f_k * S_k / x, normalised by ((f0+f1)+f2)+f3."""
+    f_new = [f[:, k] * S[k] * inv_x for k in range(4)]
     norm = ((f_new[0] + f_new[1]) + f_new[2]) + f_new[3]
     return torch.stack([fk / norm for fk in f_new], dim=1)
+
+
+def _em_update(f, gl1, gl2, include, inv_x, i_chunk=None):
+    """One EM step for all pairs. f: (P,4); gl1/gl2: (P,I,3);
+    include: (P,I) float mask; inv_x: (P,) = 1/n_used."""
+    return em_apply(f, em_sums(f, gl1, gl2, include, i_chunk), inv_x)
+
+
+def nan_ignoring_eps(f_next, f):
+    """Per pair max_k |f_next - f| folded as `if (x > eps) eps = x`: NaN
+    never wins (torch.maximum would propagate it)."""
+    diffs = (f_next - f).abs()
+    eps = torch.zeros(f.shape[0], dtype=f.dtype, device=f.device)
+    for k in range(4):
+        eps = torch.where(diffs[:, k] > eps, diffs[:, k], eps)
+    return eps
 
 
 def pair_em(gl1: torch.Tensor, gl2: torch.Tensor, maf1: torch.Tensor,
@@ -87,12 +110,7 @@ def pair_em(gl1: torch.Tensor, gl2: torch.Tensor, maf1: torch.Tensor,
     while it < ITER_MAX and bool(active.any()):
         f_new = _em_update(f, gl1, gl2, incf, inv_x, i_chunk)
         f_next = torch.where(active[:, None], f_new, f)
-        diffs = (f_next - f).abs()
-        # NaN-ignoring max fold (`if (x > eps) eps = x`); torch.maximum
-        # would propagate NaN instead
-        eps = torch.zeros(P, dtype=dt, device=gl1.device)
-        for k in range(4):
-            eps = torch.where(diffs[:, k] > eps, diffs[:, k], eps)
+        eps = nan_ignoring_eps(f_next, f)
         newly = active & (eps < EPSILON)
         n_iter = torch.where(newly, torch.full_like(n_iter, it), n_iter)
         active = active & ~newly

@@ -13,6 +13,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from ngsld_tpu import strict
 from ngsld_tpu.cli import params_from_args
@@ -224,12 +225,29 @@ def test_cli_refuses_the_cpu_unless_asked(fixdir, tmp_path, monkeypatch,
 ])
 def test_unported_options_are_refused(fixdir, tmp_path, monkeypatch, capsys,
                                       extra, env, flag):
+    """The multi-device ring is refused. --shard 2 and --shard_ind 2 were
+    refused until the block engine ran on several devices: now each starts
+    its second rank and prints the rows of --shard 1."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     argv = _argv(fixdir, ["--max_kb_dist", "10"] + extra)
-    assert main(argv + ["--out", str(tmp_path / "x.ld")]) == 1
-    err = capsys.readouterr().err
-    assert flag in err and "not" in err
+    if flag == "ring":
+        assert main(argv + ["--out", str(tmp_path / "x.ld")]) == 1
+        err = capsys.readouterr().err
+        assert flag in err and "not" in err
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))   # the two ranks share these
+    try:
+        rows = _run_cli(argv, tmp_path / "x.ld")
+    finally:
+        torch.set_num_threads(n)
+    one = _run_cli(_argv(fixdir, ["--max_kb_dist", "10"]), tmp_path / "1.ld")
+    assert len(rows) > 100
+    if "--shard_ind" in extra:
+        compare(one, rows)     # the cohort's sums add up in another order
+    else:
+        assert rows == one
 
 
 def test_strict_engine_through_the_port_cli(fixdir, tmp_path):
