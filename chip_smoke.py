@@ -9,7 +9,8 @@
     python3 chip_smoke.py --gather-only  # the same for the gather kernels:
                                          # phases 1, 2, 3d and the gather
                                          # cells of 3 and 3b
-    python3 chip_smoke.py --ring-only    # the ring alone: phases 1, 2, 7
+    python3 chip_smoke.py --ring-only    # the ring alone: phases 1, 2, 7,
+                                         # 10
     python3 chip_smoke.py --shard-only   # several ranks: phases 1, 2, 5,
                                          # 5b, 6, 9
 
@@ -134,9 +135,9 @@ Phases, each printing its result and seconds on its own line:
      the flag (the process's first profiler). Then the port's tools on the
      gather leg's TSV, each timed: prune (r2, --max_kb_dist 10,
      --min_weight 0.5; no kept pair within 10 kb at or above 0.5),
-     fit_decay --n_ind 100 (a finite fit), ld_blocks.extract_region over
-     50 kb (against a scan of the rows), merge of the TSV cut into five
-     shards (byte-equal). Last, extras/: the HMM's forward, backward,
+     fit_decay --n_ind 100 on its first fifth of rows (a finite fit),
+     ld_blocks.extract_region over 50 kb (against a scan of the rows),
+     merge of the TSV cut into five shards (byte-equal). Last, extras/: the HMM's forward, backward,
      posterior and viterbi at 100 x 20,000 x 2 on the card in f64 against
      the CPU in f64 (tolerances printed; paths equal), and findmax_torch
      on the card
@@ -157,6 +158,20 @@ Phases, each printing its result and seconds on its own line:
      reference's contract); 9a again over NCCL when the box
      has two cards. Each rank's launches, rungs and all-reduces, and the
      walls (the path on one shared card, not scaling)
+  10. the ring across two ranks that share the card (the device
+     collectives and the ring's exchange over gloo), started as phase 9
+     starts them: 10a phase 7's R1 (25k x 100, all pairs at 1%) with
+     --ring --shard 2 (strip_em.cu once a step on each rank) against
+     phase 7's one-device file (the pair set byte-equal, rows byte-equal
+     or under the f32 contract); 10b phase 5b's 2,048 x 4,000 file
+     sampled at 0.1 with --ring --shard 2 --ring_sub 2 in f64 (the gather
+     stepper: pair_em_rows.cu once a piece on each rank) and 10c the same
+     in f32 with --ring --shard_ind 2 (no kernel), each against the
+     one-device ring on the same flags; whether gloo's point-to-point
+     operations take CUDA tensors (the reason the exchange stages through
+     host memory); 10d 10a over NCCL when the box has two cards. Each
+     rank's steps, pieces, launches, exchanges (count, seconds, bytes),
+     all-reduces, host mask, sampling plan and merge seconds, and walls
 
 Then one JSON line of per-kernel results and, last, the `ok` line. Any
 failure exits non-zero without those lines; so does a machine without a
@@ -2506,6 +2521,8 @@ def _r1(tmp, card, acc):
     print("    ring counters: " + json.dumps(tim["counters"]))
     if not em > 0:
         raise AssertionError("no strip_em_kernel interval in the trace")
+    # phase 10 runs the same argv on two ranks against this file
+    return dict(argv=argv, out=r_out, sim=sim)
 
 
 def _dense_run(tmp):
@@ -2694,15 +2711,18 @@ def _r3_slice_r4(tmp, card, acc):
 
 
 def phase_ring(tmp, card, large):
-    """Phase 7: the ring sweep on the card (--ring, one device)."""
+    """Phase 7: the ring sweep on the card (--ring, one device). Returns
+    its launches (acc), and R1's run and the 2,048-site fixture, which
+    phase 10 runs again on two ranks."""
     acc = dict(_NO_LAUNCHES)
     _ring_bounds(card)
-    _r1(tmp, card, acc)
+    r1 = _r1(tmp, card, acc)
     # R2 holds the ring to phase 5b's dense run (run here when 5b did not)
-    _r2_r3(tmp, card, (large or {}).get("dense_run") or _dense_run(tmp), acc)
+    dense = (large or {}).get("dense_run") or _dense_run(tmp)
+    _r2_r3(tmp, card, dense, acc)
     _r3_slice_r4(tmp, card, acc)
     print("  launches on the ring legs: " + json.dumps(acc))
-    return acc
+    return dict(acc=acc, r1=r1, dense=dense)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2710,6 +2730,7 @@ def phase_ring(tmp, card, large):
 PRUNE_KB, PRUNE_W = 10, 0.5      # prune: --max_kb_dist, --min_weight (r2)
 REGION_BP = 50_000               # ld_blocks.extract_region's region
 N_PARTS = 5                      # merge: the TSV cut into this many shards
+FIT_SHARE = 0.2                  # fit_decay: this share of the TSV's rows
 HMM_B, HMM_L = 100, 20_000       # the HMM cell: sequences x sites, 2 states
 # the HMM on the card in f64 against the CPU in f64: values within
 # HMM_REL * max(|x|, 1), posterior probabilities within HMM_POST
@@ -2877,9 +2898,17 @@ def _tools(tsv, d):
           f"{len(kept)}; none of the {n_edges} pairs within {PRUNE_KB} kb "
           f"at or above the weight has both ends kept; {t_prune:.3f} s")
 
+    # the decay fit on the TSV's first FIT_SHARE of rows: its row parse
+    # took 24.5 s of the whole file (PR 8), cut to keep the run's time
+    head = os.path.join(d, "fit_head.ld")
+    with open(tsv, "rb") as src, open(head, "wb") as dst:
+        for k, ln in enumerate(src):
+            if k > n_rows * FIT_SHARE:
+                break
+            dst.write(ln)
     lst = os.path.join(d, "ld_files.txt")
     with open(lst, "w") as fh:
-        fh.write(tsv + "\n")
+        fh.write(head + "\n")
     (rc, text), t_fit = _timed(lambda: _quiet(lambda: fit_decay.main([
         "--ld_files", lst, "--ld", "r2", "--n_ind", str(REAL_I),
         "--fit_level", "3", "--seed", "1"])))
@@ -2887,8 +2916,9 @@ def _tools(tsv, d):
     fit = dict(zip(hdr.split("\t"), row.split("\t")))
     if rc != 0 or not np.isfinite(float(fit["DecayRate"])):
         raise AssertionError(f"fit_decay rc {rc}: {text}")
-    print(f"  fit_decay --n_ind {REAL_I}: DecayRate {fit['DecayRate']}, "
-          f"LDmax {fit['LDmax']}, LDmin {fit['LDmin']}; {t_fit:.3f} s")
+    print(f"  fit_decay --n_ind {REAL_I} on the TSV's first {FIT_SHARE} of "
+          f"rows: DecayRate {fit['DecayRate']}, LDmax {fit['LDmax']}, LDmin "
+          f"{fit['LDmin']}; {t_fit:.3f} s")
 
     (pos, dp, r2), t_reg = _timed(
         lambda: ld_blocks.extract_region(tsv, chrom, lo, hi))
@@ -3324,6 +3354,211 @@ def phase_shard(tmp, card, real, large):
         _rank_lines(launches, tims, ("pair_em",))
 
 
+# ---------------------------------------------------------------- phase 10
+
+def _same_pairs_files(one, many, label):
+    """The file `many` holds the pairs of the file `one` in the same order,
+    read a line at a time: (rows byte-equal, rows held to the f32 contract
+    of cmp_vs_strict instead)."""
+    from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
+    n_eq = 0
+    diff_a, diff_b = [], []
+    with open(one, "rb") as fa, open(many, "rb") as fb:
+        hdr = fa.readline()
+        if fb.readline() != hdr:
+            raise AssertionError(f"{label}: headers differ")
+        for k, (la, lb) in enumerate(zip(fa, fb)):
+            if la == lb:
+                n_eq += 1
+                continue
+            if la.split(b"\t", 2)[:2] != lb.split(b"\t", 2)[:2]:
+                raise AssertionError(f"{label}: pair {k} differs:\n{la}\n"
+                                     f"{lb}")
+            diff_a.append(la.decode().rstrip("\n"))
+            diff_b.append(lb.decode().rstrip("\n"))
+        if fa.readline() or fb.readline():
+            raise AssertionError(f"{label}: the outputs differ in length")
+    if diff_a:
+        h = hdr.decode().rstrip("\n")
+        cmp_vs_strict([h] + diff_a, [h] + diff_b, 0)
+    return n_eq, len(diff_a)
+
+
+def _ring_rank_lines(card, launches, tims, kernels):
+    """One line a rank of a ring run on the mesh: its steps, pieces,
+    launches, exchanges (count, host s, bytes), 'ind' all-reduces, and its
+    host mask, sampling plan and merge seconds."""
+    for r, (lc, tj) in enumerate(zip(launches, tims)):
+        c, st, ph = tj["counters"], tj["stages"], tj["phases"]
+        ar_s = st.get("mesh: 'ind' all-reduce", 0.0)
+        print(f"    rank {r}: {c.get('ring_steps', 0)} steps, "
+              f"{c.get('ring_pieces', 0)} pieces, launches "
+              + json.dumps({k: lc[k] for k in kernels})
+              + f", {c.get('ring_exchanges', 0)} ring exchanges "
+              f"({st.get('mesh: ring exchange', 0.0)} s, "
+              f"{c.get('ring_exchange_bytes', 0)} bytes), "
+              f"{c.get('ind_allreduces', 0)} 'ind' all-reduces "
+              f"({ar_s} s); host mask "
+              f"{st.get('ring: host mask', 0.0)} s, sampling plan "
+              f"{ph.get('Sampling plan (taus draws, resident anchors)', 0.0)}"
+              f" s, merge {ph.get('emit: merge + format', 0.0)} s, blocks "
+              f"to rank 0 {ph.get('emit: blocks to rank 0', 0.0)} s [{card}]")
+
+
+def _each_rank_only(launches, tims, kernel, count, label):
+    """Every rank launched `kernel` as often as its own counter `count`
+    says (its steps or its pieces), at least once, and no other kernel."""
+    for r, (lc, tj) in enumerate(zip(launches, tims)):
+        n = tj["counters"].get(count, 0)
+        if kernel is not None and n < 1:
+            raise AssertionError(f"{label}: rank {r} counted {n} {count}")
+        _only([lc], kernel, n, f"{label}, rank {r}")
+
+
+# two processes on the card: does gloo's point-to-point take a CUDA tensor
+_GLOO_P2P_CODE = """
+import datetime, sys
+import torch, torch.distributed as dist
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+x = torch.full((4,), float(rank), device="cuda")
+y = torch.empty(4, device="cuda")
+try:
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                     dist.P2POp(dist.irecv, y, 1 - rank)]):
+        w.wait()
+    print("accepted", float(y[0]) == 1.0 - rank)
+except Exception as e:
+    print("refused:", type(e).__name__, str(e).splitlines()[0][:200])
+"""
+
+
+def _gloo_cuda_p2p(d, card):
+    """Whether gloo's isend/irecv take CUDA tensors (the exchange stages
+    through pinned host buffers where ranks share a card). Prints what
+    the library does; the phase does not depend on it."""
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_P2P_CODE, str(r),
+                               str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0].strip().splitlines())
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(["timed out"] + p.communicate()[0].splitlines())
+    print("  gloo isend/irecv of CUDA tensors between two processes on the "
+          "card: " + json.dumps([o[-1] if o else "" for o in outs])
+          + f" [{card}]")
+
+
+def phase_ring_mesh(tmp, card, ring):
+    """Phase 10: the ring across two ranks that share the card (gloo),
+    started through launcher variables: 10a R1 --ring --shard 2 (the strip
+    stepper) against phase 7's R1 file; 10b the 2,048 x 4,000 file
+    sampled at 0.1 in f64, --ring --shard 2 --ring_sub 2 (the gather
+    stepper) against the one-device ring on the same flags; 10c the same
+    in f32 with --ring --shard_ind 2 (one block, two 'ind' ranks) against
+    the one-device ring; 10d 10a over NCCL where the box has two cards.
+    Returns each rank's launches summed over the phase."""
+    import torch
+    d = os.path.join(tmp, "ringmesh")
+    os.makedirs(d, exist_ok=True)
+    total = [dict(_NO_LAUNCHES) for _ in range(2)]
+
+    def add(launches):
+        for acc, lc in zip(total, launches):
+            for k in acc:
+                acc[k] += lc[k]
+
+    print(f"  two ranks on {torch.cuda.device_count()} card(s): the device "
+          "collectives and the ring's exchange run over gloo, through "
+          "pinned host buffers (walls measure the path on one shared card, "
+          "not scaling)")
+    # ---- 10a: R1 on two site blocks, against phase 7's one-device file
+    r1 = ring["r1"]
+    argv = r1["argv"][:r1["argv"].index("--verbose")] + ["--verbose", "1",
+                                                         "--ring"]
+    out = os.path.join(d, "r1_shard2.ld")
+    wall, launches, tims = _launch_ranks(argv + ["--shard", "2"], out, 2,
+                                         "10a")
+    _each_rank_only(launches, tims, "strip_em", "ring_steps", "10a")
+    add(launches)
+    eq, near = _same_pairs_files(r1["out"], out, "10a")
+    print(f"  10a R1 --ring --shard 2, {REAL_S} x {REAL_I}, all pairs at "
+          f"--rnd_sample {RING_RATE}: {eq + near} rows, the pair set of "
+          f"phase 7's one-device file, {eq} rows byte-equal, {near} within "
+          f"the f32 contract; strip_em.cu launches a rank = its steps; wall "
+          f"{wall:.3f} s (two new processes) [{card}]")
+    _ring_rank_lines(card, launches, tims, ("strip_em",))
+
+    # ---- 10b / 10c: the 2,048 x 4,000 file, sampled at 0.1
+    dense = ring["dense"]
+    glf = os.path.join(tmp, "large", f"tiled_{BIG_S}_{ROWS_I}.glf")
+    if not os.path.exists(glf):
+        _write_tiled_glf(dense["sim"], ROWS_I, glf)
+    base = ["--geno", glf, "--log_scale", "--n_ind", str(ROWS_I),
+            "--n_sites", str(BIG_S), "--pos", dense["pos"], "--max_kb_dist",
+            "0", "--max_snp_dist", "128", "--extend_out", "--rnd_sample",
+            "0.1", "--seed", "12345", "--ring", "--ring_sub", "2",
+            "--verbose", "1"]
+    for cell, extra, mesh_flags, kernel, count in (
+            ("10b", ["--precision", "f64"], ["--shard", "2"], "pair_em_rows",
+             "ring_pieces"),
+            ("10c", ["--precision", "f32"], ["--shard_ind", "2"], None,
+             "ring_pieces")):
+        ref = os.path.join(d, f"{cell}_one.ld")
+        _zero_launches()
+        (rc, err), wall1 = _timed(lambda: _cli(base + extra + ["--out",
+                                                               ref]))
+        one_launches = _read_launches()
+        if rc != 0:
+            raise AssertionError(f"{cell} one device: rc {rc}\n"
+                                 + err[-3000:])
+        out = os.path.join(d, f"{cell}_mesh.ld")
+        wall, launches, tims = _launch_ranks(base + extra + mesh_flags, out,
+                                             2, cell)
+        _each_rank_only(launches, tims, kernel, count, cell)
+        add(launches)
+        eq, near = _same_pairs(_read_lines(ref), _read_lines(out), cell)
+        if cell == "10c" and not all(t["counters"].get("ind_allreduces")
+                                     for t in tims):
+            raise AssertionError(f"10c: no 'ind' all-reduce: {tims}")
+        print(f"  {cell} --ring {' '.join(mesh_flags)} --ring_sub 2, "
+              f"{BIG_S} x {ROWS_I} sampled at 0.1, {extra[1]}: {eq + near} "
+              f"rows, the pair set of the one-device ring ("
+              + json.dumps({k: v for k, v in one_launches.items() if v})
+              + f", {wall1:.3f} s in this process), {eq} byte-equal, {near} "
+              f"within the f32 contract; "
+              + (f"{kernel} launches a rank = its pieces" if kernel else
+                 "no kernel launched (the --shard_ind step is torch "
+                 "operations around the all-reduce)")
+              + f"; wall {wall:.3f} s (two new processes) [{card}]")
+        _ring_rank_lines(card, launches, tims, (kernel,) if kernel else ())
+
+    _gloo_cuda_p2p(d, card)
+    # ---- 10d: 10a over NCCL needs two cards
+    if torch.cuda.device_count() < 2:
+        print("  10d (10a over NCCL): not run (one card on this box: two "
+              "ranks would share it, which NCCL refuses)")
+    else:
+        out = os.path.join(d, "r1_nccl.ld")
+        wall, launches, tims = _launch_ranks(argv + ["--shard", "2"], out, 2,
+                                             "10d")
+        _each_rank_only(launches, tims, "strip_em", "ring_steps", "10d")
+        eq, near = _same_pairs_files(r1["out"], out, "10d")
+        print(f"  10d R1 --ring --shard 2 over NCCL, one card a rank: {eq} "
+              f"rows byte-equal, {near} within the f32 contract; wall "
+              f"{wall:.3f} s [{card}]")
+        _ring_rank_lines(card, launches, tims, ("strip_em",))
+    print("  launches a rank over phase 10: " + json.dumps(total))
+    return total
+
+
 def main(argv=()) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3386,8 +3621,11 @@ def main(argv=()) -> int:
         with tempfile.TemporaryDirectory(prefix="ngsld_chip_smoke_") as tmp:
             card = _phase(results, "1 environment", phase_env)
             _phase(results, "2 build", phase_build)
-            _phase(results, "7 ring sweep on the card",
-                   lambda: phase_ring(tmp, card, None))
+            ring = _phase(results, "7 ring sweep on the card",
+                          lambda: phase_ring(tmp, card, None))
+            if ring is not None:
+                _phase(results, "10 the ring on two ranks",
+                       lambda: phase_ring_mesh(tmp, card, ring))
         print("chip_smoke --ring-only: "
               + ("PASS" if all(results) else "FAILED"))
         return 0 if all(results) else 1
@@ -3416,6 +3654,9 @@ def main(argv=()) -> int:
         if real is not None and large is not None:
             _phase(results, "9 the block engine on two ranks",
                    lambda: phase_shard(tmp, card, real, large))
+        if ring is not None:
+            mesh_ring = _phase(results, "10 the ring on two ranks",
+                               lambda: phase_ring_mesh(tmp, card, ring))
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
@@ -3435,12 +3676,15 @@ def main(argv=()) -> int:
          large["rows"], big["rows"]),
         ("pair_em_ichunk", "pair_em_ichunk.cu", "pallas_em.py:558",
          large["sampled"], big["ichunk"])]
+    # ring_mesh_launches: its launches a rank (rank 0, rank 1) over phase
+    # 10's runs on two ranks
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ngsld_tpu_torch/csrc/{src}",
          "replaces": f"ngsld_tpu/kernels/{tpu}", "launches": launches,
          **{k: m[k] for k in keys}, "library_ms": None,
-         "ring_launches": ring[_RING_COUNT[name]]}
+         "ring_launches": ring["acc"][_RING_COUNT[name]],
+         "ring_mesh_launches": [lc[_RING_COUNT[name]] for lc in mesh_ring]}
         for name, src, tpu, launches, m in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """ngsld_tpu_torch — PyTorch/CUDA port of the ngsld_tpu engine.
 
-The single-device run: the gathered-pair sweep and the dense strip sweep,
-each with its EM in hand-written CUDA kernels for Hopper (csrc/), and the
-site-sharded ring sweep (--ring) on one device, whose steps drive the same
-kernels (engine_ring, parallel/ring). The package stands alone: it keeps
+The gathered-pair sweep and the dense strip sweep, each with its EM in
+hand-written CUDA kernels for Hopper (csrc/), and the site-sharded ring
+sweep (--ring), whose steps drive the same kernels (engine_ring,
+parallel/ring); each on one device or on several, one process a device
+over torch.distributed (parallel/mesh). The package stands alone: it keeps
 its own copy of every host module it uses (readers, the pair plan, refine,
 the native formatter, checkpointing, the CLI parser), imports torch, and
 imports neither jax nor anything of ngsld_tpu.

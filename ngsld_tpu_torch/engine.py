@@ -9,21 +9,25 @@ CUDA in the TPU's place: auto is f32 on CUDA and f64 on the CPU.
 
 The sweep runs as gathered pair blocks or as dense strip tiles
 (engine_block picks; NGSLD_BLOCK_STRIP=1/0 forces), or with --ring as the
-site-sharded ring sweep on one device (engine_ring; a band that fits
-inside one ring step's partner sub-block runs the block engine instead,
-with a log line saying so).
+site-sharded ring sweep (engine_ring; a band that fits inside one ring
+step's partner sub-block runs the block engine instead, with a log line
+saying so).
 
---shard N / --shard_ind M (ngsld_tpu/engine.py:80-98) run the block
-engine on N x M devices, one process (rank) each, over torch.distributed
-(parallel/mesh.py): each block's pairs or each chunk's tiles split over
-the N 'pairs' rows, the cohort over the M ranks of a row. The devices are
-the node's cards, the launched world under a launcher (torchrun), and on
-the CPU (NGSLD_PLATFORM=cpu) any count of processes. --shard 0 takes the
-devices --shard_ind leaves (on the CPU, one row). Without a launcher this
-process becomes rank 0 and starts the other ranks itself. Rank 0 alone
-loads the input, writes the rows and the checkpoint; the output is the
-one-device run's TSV, rows in the same order. The ring across devices is
-not ported yet and is refused.
+--shard N / --shard_ind M (ngsld_tpu/engine.py:80-98) run on N x M
+devices, one process (rank) each, over torch.distributed
+(parallel/mesh.py). The block engine splits each block's pairs or each
+chunk's tiles over the N 'pairs' rows; rank 0 alone loads the input,
+writes the rows and the checkpoint. The ring (--ring) splits the table
+into N site blocks, one a row, whose partner sub-blocks ride the ring
+between the rows; each rank loads its own block. In both the cohort
+splits over the M ranks of a row. The devices are the node's cards, the
+launched world under a launcher (torchrun), and on the CPU
+(NGSLD_PLATFORM=cpu) any count of processes. --shard 0 takes the devices
+--shard_ind leaves (on the CPU, one row). Without a launcher this process
+becomes rank 0 and starts the other ranks itself. The output is the
+one-device run's TSV, rows in the same order; a ring whose ranks span
+several nodes (torchrun --nnodes, LOCAL_WORLD_SIZE < WORLD_SIZE) writes
+one OUT.partNNNNN a site block instead, which tools.merge joins.
 
 --profile DIR records the run with torch.profiler (CPU activity, plus
 CUDA activity on the card; no shapes, no stacks) from the resolved device
@@ -79,11 +83,6 @@ def _resolve_shards(pars: Params, device: torch.device, env=None) -> int:
     else:
         n_avail = None
     m = pars.shard_ind
-    if pars.ring and (pars.shard or max(1, (n_avail or 1) // m)) * m > 1:
-        raise StrictError(
-            "ring", f"--shard {pars.shard} x --shard_ind {m} resolves to "
-            "more than one device; the torch engine's ring runs on one "
-            "device (the multi-device ring is not ported)")
     if not pars.shard:
         # the devices LEFT OVER after the individual axis takes its share
         pars.shard = 1 if n_avail is None else n_avail // m
@@ -119,26 +118,43 @@ def _run_rank(pars: Params, out_fh, prec: str, device: torch.device,
     if pars.verbose >= 1 and rank == 0:
         echo_config(pars, f"(torch, {device}, {prec})")
     if m is not None:
-        log.log(1, f"==> {m.world} ranks ({m.shard} 'pairs' x {m.shard_ind} "
+        log.log(1, f"==> {m.world} ranks ({m.shard} "
+                   f"{'sites' if pars.ring else 'pairs'} x {m.shard_ind} "
                    f"'ind'), device collectives over {m.backend}"
                    + (f"; {m.world} ranks share "
                       f"{torch.cuda.device_count()} card(s)"
                       if m.shared else ""))
+    if pars.ring and pars.shard == 1 and device.type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        log.log(1, "==> WARNING: --ring with --shard 1 runs a degenerate "
+                   f"1-device ring ({torch.cuda.device_count()} devices "
+                   "available); pass --shard 0 for all devices")
 
     # one trace a rank for the whole run, the auto-routed ring's block run
     # too; stop() writes it, also when the run raises
     prof = _start_profile(pars.profile, device) if pars.profile else None
     close = False
     try:
-        if out_fh is None and rank == 0:
+        # the output: rank 0's; on a ring across nodes each site block's
+        # first rank writes its own part (no directory is known to be
+        # shared), part 00000 with the header
+        parts = pars.ring and m is not None and m.nodes
+        if out_fh is None and (rank == 0 or parts and m.ii == 0):
             if pars.out is not None:
-                out_fh = open(pars.out, "wb")
+                path = pars.out
+                if parts:
+                    path = f"{pars.out}.part{m.pi:05d}"
+                    log.log(1, f"==> ring across nodes: each site block's "
+                               f"first rank writes {pars.out}.partNNNNN "
+                               f"(merge: python -m ngsld_tpu_torch.tools."
+                               f"merge {pars.out})")
+                out_fh = open(path, "wb")
                 close = True
             else:
                 out_fh = getattr(sys.stdout, "buffer", sys.stdout)
         if pars.ring:
             try:
-                _run_torch_ring(pars, out_fh, log, prec, device)
+                _run_torch_ring(pars, out_fh, log, prec, device, m)
             except RingNarrowBand as e:
                 # raised before any IO/output: the band fits inside one
                 # ring step's sub-block, so the rectangle sweep would be
@@ -147,7 +163,7 @@ def _run_rank(pars: Params, out_fh, prec: str, device: torch.device,
                 log.log(1, f"==> --ring auto-route: {e}; using the block "
                            "engine (NGSLD_RING_AUTOROUTE=0 or --ring_sub N "
                            "to force the ring)")
-                _run_torch_body(pars, out_fh, log, prec, device)
+                _run_torch_body(pars, out_fh, log, prec, device, m)
         else:
             _run_torch_body(pars, out_fh, log, prec, device, m)
     finally:

@@ -1,11 +1,13 @@
-"""Site-sharded ring sweep (--ring), on one device: see
-_run_torch_ring (ngsld_tpu/engine_ring.py::_run_jax_ring)."""
+"""Site-sharded ring sweep (--ring), on one device or on a mesh of ranks,
+one site block a rank: see _run_torch_ring
+(ngsld_tpu/engine_ring.py::_run_jax_ring)."""
 
 from __future__ import annotations
 
 import json
 import math
 import os
+import shutil
 import tempfile
 import time
 
@@ -20,7 +22,8 @@ from .kernels.strip_em import strip_i_align, strip_streamed, strip_tables
 from .loaders import _ring_sharded_tables
 from .ops.preprocess import preprocess
 from .parallel.ring import (ring_subblock_taker, ring_subblock_taker_strip,
-                            ring_sweep_stepper, ring_sweep_stepper_strip)
+                            ring_sweep_stepper, ring_sweep_stepper_ind,
+                            ring_sweep_stepper_strip)
 from .plan.band import band_limits, child_seeds, contig_positions
 from .plan.strips import TA
 from .refine import (StrictRefiner, degenerate_tiers, derive_columns_f64,
@@ -42,33 +45,77 @@ class RingNarrowBand(RuntimeError):
         self.mean_w, self.b_sub = mean_w, b_sub
 
 
-def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
-    """Site-sharded ring sweep (--ring) on one device.
+def _local_blocks(arr, m=None) -> dict:
+    """{block index -> host ndarray} of this rank's resident blocks (the
+    reference's _local_blocks over a process's addressable shards): one
+    rank holds one block, its own."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.cpu().numpy()
+    return {0 if m is None else m.pi: np.asarray(arr)}
 
-    The table is loaded as the ring's one block (loaders.
-    _ring_sharded_tables: slab by slab into its device rows, host memory
-    O(one slab)) and preprocessed on the device. The pair space is swept as
-    n_sub sub-rings: sub-ring si pairs the resident block's anchors with
-    the partner sub-block si (B_sub sites), one ring step each on one
-    device. Each step computes its (B, B_sub) rectangle with one of two
-    steppers (parallel.ring) and compacts it on the device to the live
-    rows, in row-major (a, pj) order; the host replays the same emission
-    mask for the (a, pj) labels and cross-checks the live count. Stepper
-    rule: the strip kernels when NGSLD_FORCE_STRIP=1 or on a CUDA device
-    in f32 (the reference's rule with CUDA in the TPU's place), else the
-    gather stepper through the EM ladder. A kernel that fails to build or
-    launch ends the run with its error: there is no retry on the other
-    stepper.
 
-    Every step's rows spill to disk (_RingSpill: a TemporaryDirectory, or
-    the --checkpoint dir, which makes the sweep resumable by (sub-ring,
-    step)); the emit is a bounded-memory merge over the spill
-    (NGSLD_RING_EMIT_ROWS rows a chunk), deriving D/D'/r2/hap-MAFs/chi2 on
-    the host and repairing degenerate pairs with refine's tiers, keyed on
-    the precision of the values the stepper produced.
+def _ind_maf(m, num, den):
+    """est_maf over the whole cohort of a block split over its 'ind' ranks:
+    numerator and denominator added up over the block's group in f64,
+    then divided (the reference's sharded est_maf); in the table dtype."""
+    P = num.shape[0]
+    s = m.all_reduce(torch.cat([num.to(torch.float64),
+                                den.to(torch.float64)]))
+    return (s[:P] / s[P:]).to(num.dtype)
+
+
+def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
+                    m=None):
+    """Site-sharded ring sweep (--ring), on one device or on the mesh m
+    (parallel.mesh.Mesh: --shard N site blocks x --shard_ind M, one rank
+    a device, rank r at block m.pi = r // M).
+
+    Each rank loads its own block only (loaders._ring_sharded_tables:
+    slab by slab into its device rows, host memory O(one slab); under
+    --shard_ind its slice of the cohort) and preprocesses it on its
+    device; under --shard_ind the MAF's sums are all-reduced over the
+    block's ranks in f64. The (n,) MAF vector of every block is gathered
+    to every rank over the host group, so every rank holds the same MAF,
+    knife-edge repair, band limits and ok plane: the pair set is one
+    device's. The pair space is swept as n_sub sub-rings: sub-ring si
+    pairs the resident block's anchors with sub-block si (B_sub sites) of
+    the block t positions along the ring, for the steps t the band
+    reaches; after each step the visiting sub-block moves one position
+    (Mesh.ring_shift). Each step computes its (B, B_sub) rectangle with
+    one of three steppers (parallel.ring) and compacts it on the device
+    to the live rows, in row-major (a, pj) order; the block's first rank
+    (its owner) replays the same emission mask on the host for the
+    (a, pj) labels and cross-checks the live count. Stepper rule: the
+    strip kernels when NGSLD_FORCE_STRIP=1 or on a CUDA device in f32
+    (the reference's rule with CUDA in the TPU's place; not under
+    --shard_ind), else the gather stepper through the EM ladder, or its
+    --shard_ind form. A kernel that fails to build or launch ends the run
+    with its error: there is no retry on the other stepper.
+
+    Every step's rows spill to disk (_RingSpill, files named by rank: a
+    temporary directory, shared by the ranks of one node, or the
+    --checkpoint dir, which makes the sweep resumable by (sub-ring,
+    step); the ranks resume at the least step any of them left
+    uncommitted). A stop (SIGINT/SIGTERM) on any rank stops every rank at
+    the same step. The emit is a bounded-memory merge of each owner's
+    spill (NGSLD_RING_EMIT_ROWS rows a chunk), deriving D/D'/r2/
+    hap-MAFs/chi2 on the host and repairing degenerate pairs with
+    refine's tiers, keyed on the precision of the values the stepper
+    produced. The owners emit in parallel; on one node the blocks after
+    the first are formatted into files of the spill directory and rank 0
+    appends them to its output in block order, so the TSV is one
+    device's; across nodes each owner writes its own OUT.partNNNNN (the
+    engine opens it), which tools.merge joins.
     """
-    n_dev = pars.shard   # resolved to 1 in run_torch
+    n_dev = 1 if m is None else m.shard
+    n_is = 1 if m is None else m.shard_ind
+    rank = 0 if m is None else m.rank
+    me = 0 if m is None else m.pi           # this rank's site block
+    owner = m is None or m.ii == 0          # the block's rank that emits
+    if pars.n_ind % n_is:
+        raise strict.StrictError("shard", "--shard_ind must divide --n_ind")
     tmp_spill = None
+    part_fh = part_path = None
     try:
         with log.phase("Getting sites coordinates"):
             if pars.in_pos:
@@ -91,8 +138,9 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
         n_sub = min(n_sub, B)
         # the strip-kernel stepper on the card in f32; NGSLD_FORCE_STRIP=1
         # forces it anywhere (the kernels' plain versions on the CPU)
-        use_strip = (os.environ.get("NGSLD_FORCE_STRIP") == "1"
-                     or (device.type == "cuda" and prec == "f32"))
+        use_strip = n_is == 1 and (
+            os.environ.get("NGSLD_FORCE_STRIP") == "1"
+            or (device.type == "cuda" and prec == "f32"))
         # refine's tiers key on the precision of the values the STEPPER
         # produces: the strip kernels' are f32 even when the run is f64
         # (NGSLD_FORCE_STRIP on the CPU), so their fragile band must be
@@ -107,11 +155,15 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
 
         # narrow-band auto-route: a band that fits inside ONE ring step's
         # partner sub-block leaves most rectangle cells dead; the block
-        # engine wins outright there. Exempt: an explicit --ring_sub (the
-        # user is hand-tuning the ring), a resumed ring checkpoint, tables
-        # too big to hold twice (NGSLD_AUTOROUTE_MEM, the reference's
-        # design value), NGSLD_RING_AUTOROUTE=0.
-        if (not getattr(pars, "ring_sub", 0)
+        # engine wins outright there. Every rank decides alike, from the
+        # same positions and flags, before any collective. Exempt: ranks
+        # on several nodes (the block engine's rank 0 loads the whole
+        # table), an explicit --ring_sub (the user is hand-tuning the
+        # ring), a resumed ring checkpoint, tables too big to hold twice
+        # (NGSLD_AUTOROUTE_MEM, the reference's design value),
+        # NGSLD_RING_AUTOROUTE=0.
+        if ((m is None or not m.nodes)
+                and not getattr(pars, "ring_sub", 0)
                 and os.environ.get("NGSLD_RING_AUTOROUTE") != "0"):
             ck = getattr(pars, "checkpoint", None)
             ring_ckpt = False   # a resumed RING checkpoint pins the engine
@@ -132,19 +184,30 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                 if mean_w <= B_sub:
                     raise RingNarrowBand(mean_w, B_sub)
         Sp = B * n_dev
+        # the gather steppers' two visiting slots past the block, where
+        # partners come from other ranks
+        spare = 2 * B_sub if n_dev > 1 and not use_strip else 0
         np_dt = np.float64 if prec == "f64" else np.float32
         with log.phase("Reading data from file (site-sharded stream)"):
             gl_d, raw_gl = _ring_sharded_tables(
-                pars, n_dev, B, Sp, np_dt, log, device)
+                pars, n_dev, B, Sp, np_dt, log, device, m, spare)
         with log.phase("Preprocessing (site-sharded) on device"):
             gn_d, maf_d, eg_d = preprocess(
                 gl_d, call=pars.call_geno, N_thresh=pars.N_thresh,
                 call_thresh=pars.call_thresh,
                 ignore_miss_data=pars.ignore_miss_data,
-                raw=raw_gl, in_log=pars.in_logscale)
+                raw=raw_gl, in_log=pars.in_logscale,
+                maf_of=(None if n_is == 1
+                        else lambda num, den: _ind_maf(m, num, den)))
             del gl_d
             # np.array copies: knife-edge refinement writes into it
-            maf = np.array(maf_d.cpu().numpy(), np.float64)[:n]
+            maf = np.array(maf_d[:B].cpu().numpy(), np.float64)
+            if n_dev > 1:
+                # the masks need every block's MAF (partners live on
+                # other ranks): the reference's process_allgather
+                parts = m.all_gather_object(maf)
+                maf = np.concatenate(parts[::n_is])
+            maf = maf[:n]
 
         refiner = None
 
@@ -177,7 +240,13 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
         # pair set: the resident anchors' sampled draw-index sets, and a
         # pair's draw index recovered in O(1) as the ok-prefix-sum rank of
         # the partner within the anchor's band
-        my_blocks = list(range(n_dev))
+        my_blocks = [me] if owner else []
+        # the blocks whose step masks this rank replays: its own block's
+        # owner, for the labels and the live-count check, and under
+        # sampling every rank of the block, for the membership bits its
+        # device masks with (each rank of a block computes the same plane
+        # rather than receive it)
+        mask_blocks = [me] if owner or pars.rnd_sample < 1.0 else []
         samp_keys = okc = None
         if pars.rnd_sample < 1.0:
             from .gsl_rng import iter_uniform_chunks
@@ -188,7 +257,7 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
             # is already sorted; membership below is one searchsorted)
             parts = []
             with log.phase("Sampling plan (taus draws, resident anchors)"):
-                for k in my_blocks:
+                for k in mask_blocks:
                     lo_s, hi_s = k * B, min(k * B + B, n)
                     if lo_s >= n:
                         continue
@@ -196,12 +265,13 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                     if not len(anchors):
                         continue
                     # kept-candidate count per anchor (ok partners in band)
-                    m = (okc[np.maximum(hi[anchors] - 1, anchors)]
-                         - okc[anchors])
-                    for a0, a1, u in iter_uniform_chunks(seeds[anchors], m):
+                    kept = (okc[np.maximum(hi[anchors] - 1, anchors)]
+                            - okc[anchors])
+                    for a0, a1, u in iter_uniform_chunks(seeds[anchors],
+                                                         kept):
                         for r in range(a0, a1):
                             c_hit = np.flatnonzero(
-                                u[r - a0, :m[r]] <= pars.rnd_sample)
+                                u[r - a0, :kept[r]] <= pars.rnd_sample)
                             if len(c_hit):
                                 parts.append(anchors[r] * np.int64(n) + c_hit)
             samp_keys = (np.concatenate(parts) if parts
@@ -218,21 +288,31 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
         persistent = bool(getattr(pars, "checkpoint", None))
         if persistent:
             spill_dir = pars.checkpoint
-        else:
+        elif m is None or m.nodes:
             tmp_spill = tempfile.TemporaryDirectory(prefix="ngsld_ring_")
             spill_dir = tmp_spill.name
+        else:
+            # one node: rank 0's directory, shared; the emitted blocks
+            # pass through it on their way to rank 0's output
+            if rank == 0:
+                tmp_spill = tempfile.TemporaryDirectory(prefix="ngsld_ring_")
+            spill_dir = m.broadcast_object(
+                tmp_spill.name if rank == 0 else None)
         # strip= pins WHICH stepper produced the spilled tiles and prec=
         # the precision of the run: values from another stepper or another
         # precision differ in the last bits, so a resume must never mix
         # them; ic= the streamed strip kernel's chunk (its summation
         # order); cols= the spilled record layout (slim-v2: a, pj, r2p, f,
-        # n_iter[, n_used], the rest derived at merge)
+        # n_iter[, n_used], the rest derived at merge); n_proc= and n_is=
+        # the world and its 'ind' split, so a checkpoint of another
+        # decomposition is refused
         extra = dict(mode="ring", n_dev=n_dev, n_sub=n_sub, block=B,
-                     n_proc=1, strip=bool(use_strip), n_is=1,
-                     cols="slim-v2", prec=prec)
+                     n_proc=1 if m is None else m.world,
+                     strip=bool(use_strip), n_is=n_is, cols="slim-v2",
+                     prec=prec)
         if use_strip and strip_streamed(pars.n_ind, device):
             extra["ic"] = strip_i_align(pars.n_ind, device)
-        spill = _RingSpill(spill_dir, pars, extra, 0, persistent)
+        spill = _RingSpill(spill_dir, pars, extra, rank, persistent)
         rck = spill if persistent else None
 
         compact_cfg = dict(
@@ -244,8 +324,9 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
         hip[:n] = hi
         okp = np.zeros(Sp, np.float32)
         okp[:n] = ok
-        hi_d = torch.from_numpy(hip).to(device)
-        ok_d = torch.from_numpy(okp).to(device)
+        # the resident block's band limits and ok plane
+        hi_d = torch.from_numpy(hip[me * B:me * B + B]).to(device)
+        ok_d = torch.from_numpy(okp[me * B:me * B + B]).to(device)
         if use_strip:
             with log.phase("Building strip tables (device)"):
                 ga_d, gb_d, ea_d, eb_d = strip_tables(
@@ -254,19 +335,30 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                 del gn_d, eg_d   # the strip layouts replace them
                 maf_s = maf_d.to(torch.float32)
             stepper = ring_sweep_stepper_strip(
-                pars.n_ind, B, B_sub, pars.ignore_miss_data, compact_cfg)
+                pars.n_ind, B, B_sub, pars.ignore_miss_data, compact_cfg, m)
             log.log(2, f"==> ring: strip-kernel stepper ({B // TA}x"
                        f"{B_sub // TA} tiles a step"
                        + (", streamed kernel"
                           if strip_streamed(pars.n_ind, device) else "")
                        + ")")
         else:
-            stepper = ring_sweep_stepper(
-                pars.ignore_miss_data, pars.chunk_pairs, compact_cfg)
-            log.log(2, "==> ring: gather stepper (pieces of at most "
-                       f"{pars.chunk_pairs} pairs)")
-        writer = RowWriter(out_fh, labels, pars.extend_out)
-        writer.write_header()
+            stepper = (ring_sweep_stepper if n_is == 1
+                       else ring_sweep_stepper_ind)(
+                pars.ignore_miss_data, pars.chunk_pairs, compact_cfg, m)
+            log.log(2, "==> ring: gather stepper "
+                       + ("" if n_is == 1 else
+                          f"('sites', 'ind' over {n_is} ranks) ")
+                       + f"(pieces of at most {pars.chunk_pairs} pairs)")
+        writer = None
+        if owner:
+            if rank == 0 or m.nodes:
+                part_fh = out_fh
+            else:
+                part_path = os.path.join(spill_dir, f"emit_b{me:05d}.tsv")
+                part_fh = open(part_path, "wb")
+            writer = RowWriter(part_fh, labels, pars.extend_out)
+            if rank == 0:
+                writer.write_header()
 
         def host_mask(i, si, t):
             """The emission mask of one resident block's (B, B_sub) step
@@ -326,9 +418,14 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                     # resume: steps commit in order, so the first missing
                     # one is where the interrupted sweep stopped; resumed
                     # steps' tiles are already in the spill and the merge
-                    # reads them straight from disk
+                    # reads them straight from disk. Ranks may have
+                    # stopped at different steps; all run the same
+                    # collectives, so they resume at the least (a rank
+                    # that committed further recomputes and overwrites)
                     while t0 < t_max and rck.done(si, t0):
                         t0 += 1
+                    if m is not None:
+                        t0 = m.host_reduce(t0, "min")
                     if t0:
                         log.count("ring_steps_resumed", t0)
                         log.log(2, f"==> ring ckpt: sub-ring {si} resumes "
@@ -337,14 +434,17 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                     continue
                 if use_strip:
                     vis = ring_subblock_taker_strip(
-                        n_dev, n_sub, si, offset=t0)(
+                        n_dev, n_sub, si, offset=t0, mesh=m)(
                             gb_d, eb_d, maf_s, ok_d)
                 else:
                     vis = ring_subblock_taker(
-                        n_dev, n_sub, si, offset=t0, with_ok=True)(
+                        n_dev, n_sub, si, offset=t0, with_ok=True, mesh=m)(
                             gn_d, eg_d, maf_d, ok_d)
                 for t in range(t0, t_max):
-                    if gs.stopped:
+                    # a stop on any rank stops every rank at this step
+                    # (the survivors would wait in the next collective)
+                    if (gs.stopped if m is None
+                            else m.host_reduce(gs.stopped)):
                         # the last completed step is committed; a rerun
                         # with the same --checkpoint resumes right here
                         interrupted = True
@@ -353,11 +453,11 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                     # (when sampling) the packed membership bits the
                     # device ANDs into its own mask
                     th = time.perf_counter()
-                    masks = {i: host_mask(i, si, t) for i in my_blocks}
+                    masks = {i: host_mask(i, si, t) for i in mask_blocks}
                     bits = None
                     if compact_cfg["sample"]:
                         bits = torch.from_numpy(
-                            pack_bits(masks[0][1]).view(np.uint8)).to(device)
+                            pack_bits(masks[me][1]).view(np.uint8)).to(device)
                     log.count_time("ring: host mask",
                                    time.perf_counter() - th)
                     ts = time.perf_counter()
@@ -370,8 +470,12 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                         res, *vis = stepper(
                             gn_d, eg_d, maf_d, hi_d, ok_d, *vis, t, si, bits)
                     fm_d, im_d, cnt = res
+                    if not use_strip:
+                        # the gather steppers' pieces (one kernel launch
+                        # each, or one --shard_ind step)
+                        log.count("ring_pieces", -(-cnt // pars.chunk_pairs))
                     step_rows = {}
-                    for i in my_blocks:
+                    for i in mask_blocks:
                         valid, _ = masks[i]
                         a_idx, pj_idx = np.nonzero(valid)
                         live = len(a_idx)
@@ -382,7 +486,7 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                                 f"ring compact mismatch: device {cnt} vs "
                                 f"host {live} rows (block {i}, si {si}, "
                                 f"t {t})")
-                        if live == 0:
+                        if live == 0 or not owner:
                             step_rows[i] = None
                             continue
                         fm = fm_d.cpu().numpy()
@@ -410,6 +514,8 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                     log.log(2, f"==> ring step (sub-ring {si}, t {t}): "
                                f"{cnt} rows{peak}")
                     tw = time.perf_counter()
+                    # the block's other ranks commit the step too (a
+                    # marker with no rows): each rank resumes from its own
                     spill.save_step(si, t, step_rows)
                     log.count_time("ring: spill", time.perf_counter() - tw)
                     del step_rows, masks
@@ -422,6 +528,13 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
             log.log(0, f"==> Interrupted mid ring sweep; completed steps "
                        f"are committed. {hint}")
             raise SystemExit(130)
+        if m is not None:
+            log.count("ring_exchanges", m.ring_exchanges)
+            log.count("ring_exchange_bytes", m.ring_exchange_bytes)
+            log.count_time("mesh: ring exchange", m.ring_exchange_s)
+            if n_is > 1:
+                log.count("ind_allreduces", m.allreduces)
+                log.count_time("mesh: 'ind' all-reduce", m.allreduce_s)
 
         # Emit: bounded-memory merge over the spill. Each tile file is
         # already (a, pj)-sorted (row-major compaction), so rows for an
@@ -524,6 +637,19 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                         hmaf2=cols["hmaf2"], chi2=cols["chi2"],
                         n_iter=cols["n_iter"])
                     log.count("pairs_emitted", len(af))
+        if m is not None and not m.nodes:
+            # one node: rank 0 appends the other blocks' formatted rows
+            # to its own, in block order, a bounded chunk at a time
+            if part_path is not None:
+                part_fh.close()
+            parts = m.all_gather_object(part_path)
+            if rank == 0:
+                with log.phase("emit: blocks to rank 0"):
+                    for path in parts:
+                        if path is not None:
+                            with open(path, "rb") as fh:
+                                shutil.copyfileobj(fh, out_fh, 1 << 24)
+                            os.remove(path)
         if refiner is not None:
             # sub-stage attribution of the strict-repair wall (the block
             # engine's keys: read/prep/cache/gather/pearson/em/stats)
@@ -531,5 +657,7 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device):
                 log.count_time(f"emit: refine/{k}", v)
         log.summary()
     finally:
+        if part_path is not None:
+            part_fh.close()
         if tmp_spill is not None:
             tmp_spill.cleanup()

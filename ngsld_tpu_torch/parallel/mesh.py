@@ -1,12 +1,14 @@
-"""Ranks of a multi-device block run over torch.distributed
+"""Ranks of a multi-device run over torch.distributed
 (ngsld_tpu/parallel/mesh.py: make_mesh, init_distributed).
 
 One process (rank) drives one device. World size = shard x shard_ind;
 rank r sits at (r // shard_ind, r % shard_ind) on the ('pairs', 'ind')
-mesh of the reference. Three kinds of group:
+mesh of the reference, which the ring reads as ('sites', 'ind'): the
+first coordinate is then the rank's site block. Three kinds of group:
 
   * the default group: the device collectives that every rank joins (the
-    broadcast of the site tables);
+    broadcast of the site tables, the ring's exchange between the blocks
+    of one 'ind' column);
   * one subgroup per 'pairs' row (--shard_ind > 1): the 'ind' all-reduces
     of the EM and of the Pearson moments;
   * a gloo group over every rank: host-side traffic (each row's result
@@ -58,7 +60,10 @@ class Mesh:
 
     allreduces / allreduce_s count the 'ind' all-reduces and their host
     seconds (on NCCL only the enqueue, the device runs them later);
-    gather_s is rank 0's host seconds receiving the other rows' pieces."""
+    gather_s is rank 0's host seconds receiving the other rows' pieces;
+    ring_exchanges / ring_exchange_s / ring_exchange_bytes count the
+    ring's shifts (ring_shift), their host seconds and the bytes this
+    rank sent."""
     rank: int
     world: int
     shard: int
@@ -66,11 +71,22 @@ class Mesh:
     device: torch.device
     backend: str                 # the device collectives: "nccl" | "gloo"
     shared: bool                 # ranks of the node share a card
+    local_world: int = 0         # ranks on this rank's node (0: world)
     ind_group: object = None     # this rank's 'pairs' row (shard_ind > 1)
     host_group: object = None    # gloo, every rank
     allreduces: int = 0
     allreduce_s: float = 0.0
     gather_s: float = 0.0
+    ring_exchanges: int = 0
+    ring_exchange_s: float = 0.0
+    ring_exchange_bytes: int = 0
+    _stage: tuple = ()           # pinned host buffers of a staged shift
+
+    @property
+    def nodes(self) -> bool:
+        """The ranks span several nodes (a launcher's LOCAL_WORLD_SIZE
+        below its WORLD_SIZE): no directory is known to be shared."""
+        return 0 < self.local_world < self.world
 
     @property
     def pi(self) -> int:
@@ -105,6 +121,83 @@ class Mesh:
         out = [None] * self.world
         dist.all_gather_object(out, obj, group=self.host_group)
         return out
+
+    def host_reduce(self, x: int, op: str = "max") -> int:
+        """An integer's max or min over every rank (host group)."""
+        t = torch.tensor([int(x)], dtype=torch.int64)
+        dist.all_reduce(t, op=dict(max=dist.ReduceOp.MAX,
+                                   min=dist.ReduceOp.MIN)[op],
+                        group=self.host_group)
+        return int(t)
+
+    def ring_shift(self, tensors, offset: int = 1, out=None) -> tuple:
+        """jax.lax.ppermute(v, 'sites', [(k, (k - offset) % n) ...]) over
+        this rank's 'ind' column: the rank at block i receives the tensors
+        of block (i + offset) % n and sends its own to block
+        (i - offset) % n. Returns the received tensors: `out` (contiguous
+        tensors shaped as `tensors`, filled in place) or new ones. At one
+        block, or where offset % n == 0, it is the identity and calls
+        nothing.
+
+        Every send and receive of a shift is posted at once
+        (batch_isend_irecv): a blocking send-then-receive around a ring
+        deadlocks under NCCL. NCCL moves the device tensors directly;
+        gloo's point-to-point operations take CPU tensors, so on a card
+        (ranks that share it) each shift goes through one pinned host
+        buffer a direction, allocated once and grown as needed. A shift
+        that fails ends the run with an error naming this rank."""
+        n = self.shard
+        tensors = tuple(tensors)
+        if n == 1 or offset % n == 0:
+            return tensors
+        M = self.shard_ind
+        dst = ((self.pi - offset) % n) * M + self.ii
+        src = ((self.pi + offset) % n) * M + self.ii
+        t0 = time.perf_counter()
+        send = [t.contiguous() for t in tensors]
+        recv = ([torch.empty_like(t) for t in send] if out is None
+                else list(out))
+        assert all(r.is_contiguous() and r.shape == t.shape
+                   and r.dtype == t.dtype for r, t in zip(recv, send))
+        nbytes = sum(t.numel() * t.element_size() for t in send)
+        staged = self.backend == "gloo" and send[0].device.type != "cpu"
+        try:
+            if staged:
+                s_buf, r_buf = self._staging(nbytes)
+                off = 0
+                for t in send:
+                    k = t.numel() * t.element_size()
+                    s_buf[off:off + k].copy_(t.reshape(-1).view(torch.uint8))
+                    off += k
+                ops = [dist.P2POp(dist.isend, s_buf[:nbytes], dst),
+                       dist.P2POp(dist.irecv, r_buf[:nbytes], src)]
+            else:
+                ops = ([dist.P2POp(dist.isend, t, dst) for t in send]
+                       + [dist.P2POp(dist.irecv, r, src) for r in recv])
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+            if staged:
+                off = 0
+                for r in recv:
+                    k = r.numel() * r.element_size()
+                    r.reshape(-1).view(torch.uint8).copy_(r_buf[off:off + k])
+                    off += k
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"rank {self.rank}: ring exchange (offset {offset}: to rank "
+                f"{dst}, from rank {src}) failed: {e}") from e
+        self.ring_exchanges += 1
+        self.ring_exchange_s += time.perf_counter() - t0
+        self.ring_exchange_bytes += nbytes
+        return tuple(recv)
+
+    def _staging(self, nbytes: int):
+        """(send, receive) pinned uint8 host buffers of at least nbytes."""
+        if not self._stage or self._stage[0].numel() < nbytes:
+            self._stage = tuple(
+                torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                for _ in range(2))
+        return self._stage
 
     def send_rows(self, arrays) -> None:
         """Send host arrays to rank 0 as one byte buffer (host group); rank
@@ -174,7 +267,8 @@ def connect(rank: int, world: int, shard: int, shard_ind: int,
     kw = {"store": store} if store is not None else {"init_method": "env://"}
     dist.init_process_group(backend, rank=rank, world_size=world,
                             timeout=_timeout(), **kw)
-    m = Mesh(rank, world, shard, shard_ind, device, backend, shared)
+    m = Mesh(rank, world, shard, shard_ind, device, backend, shared,
+             local_world)
     m.host_group = dist.new_group(backend="gloo", timeout=_timeout())
     if shard_ind > 1:
         # every rank creates every row's group, in the same order
@@ -194,8 +288,9 @@ def teardown() -> None:
 
 def _rank_entry(rank: int, world: int, port: int, job: dict) -> None:
     """Entry of a self-started rank (a spawned process): join rank 0's
-    store, then run the block engine's body on this rank's device. It
-    writes no rows; an exception exits the process non-zero."""
+    store, then run this rank's part of the run (the block engine, or the
+    ring) on its device. Only rank 0 writes to the run's output; an
+    exception exits the process non-zero."""
     torch.set_num_threads(job["threads"])
     from ..engine import _run_rank   # the engine imports this module
     pars = job["pars"]

@@ -16,7 +16,8 @@ tests/test_checkpoint.py: the port's --ring (f64, the kernels' plain
 versions) against strict under `compare`, and in the pair columns
 against the JAX ring at --shard 1 where named; the ring loader; the
 spill merge; checkpoint and resume; the auto-route; the forced strip
-stepper under `cmp_vs_strict`; the refusals.
+stepper under `cmp_vs_strict`; the refusal of the CPU unless asked. The
+ring across devices is tests/test_torch_ringmesh*.py's.
 """
 
 import io
@@ -279,14 +280,6 @@ def test_partner_index_and_steps_for_band_match_jax():
     assert tring.steps_for_band(np.zeros(0, int), 8) == 1
 
 
-def test_takers_refuse_a_ring_of_several_blocks():
-    with pytest.raises(NotImplementedError, match="exchange"):
-        tring.ring_subblock_taker(2, 2, 0)
-    with pytest.raises(NotImplementedError, match="exchange"):
-        tring.ring_sweep_stepper(False, 64, _cfg(8, 8, 4, False) | {
-            "n_dev": 2})
-
-
 # --------------------------------------------------------------- CLI level
 
 def _run_port(argv, out):
@@ -423,16 +416,6 @@ def test_ring_load_host_memory_bounded(tmp_path):
     ref = np.fromfile(glf, np.float64).reshape(n, m, 3)
     np.testing.assert_array_equal(gl.numpy()[:n], ref)
     np.testing.assert_array_equal(gl.numpy()[n:], np.log(1.0 / 3.0))
-
-
-def test_ring_load_refuses_several_blocks(tmp_path):
-    glf = tmp_path / "x.glf"
-    glf.write_bytes(bytes(8 * 2 * 24))
-    pars = params_from_args(["--geno", str(glf), "--n_ind", "2",
-                             "--n_sites", "8", "--max_kb_dist", "0",
-                             "--ring"])
-    with pytest.raises(NotImplementedError, match="one device"):
-        _ring_sharded_tables(pars, 2, 4, 8, np.float64, RunLog(0), "cpu")
 
 
 def test_ring_emit_merge_chunking_invariant(tmp_path, monkeypatch):
@@ -610,19 +593,6 @@ def test_strip_stepper_failure_ends_the_run(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="cudaError 98"):
         run_torch(params_from_args(argv), out_fh=out)
     assert out.getvalue().count(b"\n") <= 1   # the header at most
-
-
-@pytest.mark.parametrize("extra", [["--shard", "2"], ["--shard_ind", "2"],
-                                   ["--shard", "0", "--shard_ind", "2"]])
-def test_multi_device_ring_is_refused(tmp_path, capsys, extra):
-    files = write_all(simulate(n_ind=4, n_sites=20, seed=1),
-                      str(tmp_path / "fx"))
-    argv = ["--geno", files["beagle"], "--probs", "--n_ind", "4",
-            "--n_sites", "20", "--pos", files["pos"], "--ring"] + extra
-    assert main(argv + ["--out", str(tmp_path / "x.ld")]) == 1
-    err = capsys.readouterr().err
-    assert "multi-device ring is not ported" in err
-    assert not os.path.exists(tmp_path / "x.ld")
 
 
 def test_ring_refuses_the_cpu_unless_asked(tmp_path, monkeypatch, capsys):

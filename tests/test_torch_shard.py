@@ -9,7 +9,7 @@ CPU: ranks are processes over gloo (NGSLD_PLATFORM=cpu).
     against run_jax under `compare`, the strip sweep on both meshes against
     --shard 1 under the f32 contract, a checkpointed --shard 2 run resumed;
   * a rank that fails fails the run; the ranks import neither jax nor the
-    JAX package; --ring on several devices stays refused.
+    JAX package (the ring on several devices: test_torch_ringmesh*.py).
 
 The JAX package is imported inside the tests, so that the ranks this file
 spawns (they import it for _child) stay free of it."""
@@ -479,14 +479,6 @@ def test_a_failed_rank_fails_the_run(fixdir, tmp_path, monkeypatch,
     assert rc == 1 and took < 60
     assert "rank 1 failed: RuntimeError: rank 1 fails" in err
     assert not out.exists() or len(out.read_text().splitlines()) <= 1
-
-
-def test_multi_device_ring_stays_refused(fixdir, tmp_path, capfd):
-    out = tmp_path / "x.ld"
-    assert main(_argv(fixdir, ["--ring", "--shard", "2", "--out",
-                               str(out)])) == 1
-    assert "multi-device ring is not ported" in capfd.readouterr().err
-    assert not out.exists()
 
 
 def test_launched_world_must_match_the_flags(fixdir, tmp_path, monkeypatch,
