@@ -13,6 +13,8 @@
                                          # 10
     python3 chip_smoke.py --shard-only   # several ranks: phases 1, 2, 5,
                                          # 5b, 6, 9
+    python3 chip_smoke.py --kernels-only # the kernels and their options:
+                                         # phases 1, 2, 3, 11
 
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
@@ -150,13 +152,13 @@ Phases, each printing its result and seconds on its own line:
      (strip_em.cu once a chunk on each rank's tiles, rows against phase
      6's file and a sample against strict), 9c --shard_ind 2 in f32 on
      phase 5b's 2,048 x 4,000 file, sampled (the gather step for
-     --shard_ind) and dense (its strip step), against --shard_ind 1 runs
-     (the pair set equal, values under the f32 contract; no kernel
-     launched); 9d the two --shard_ind steps at world size 1 over NCCL
-     on the card, the gather step against compute_block (pair_em.cu) and
-     the strip step on 64 all-pairs tiles against strip_em.cu (the
-     reference's contract); 9a again over NCCL when the box
-     has two cards. Each rank's launches, rungs and all-reduces, and the
+     --shard_ind), and dense on its first 1,024 sites (its strip step),
+     against --shard_ind 1 runs (the pair set equal, values under the f32
+     contract; no kernel launched); 9d the two --shard_ind steps at world
+     size 1 over NCCL on the card, the gather step against compute_block
+     (pair_em.cu) and the strip step on 64 all-pairs tiles against
+     strip_em.cu (the reference's contract); 9a again over NCCL when the
+     box has two cards. Each rank's launches, rungs and all-reduces, and the
      walls (the path on one shared card, not scaling)
   10. the ring across two ranks that share the card (the device
      collectives and the ring's exchange over gloo), started as phase 9
@@ -172,6 +174,21 @@ Phases, each printing its result and seconds on its own line:
      host memory); 10d 10a over NCCL when the box has two cards. Each
      rank's steps, pieces, launches, exchanges (count, seconds, bytes),
      all-reduces, host mask, sampling plan and merge seconds, and walls
+  11. the kernel options, none of them on the CLI's path: 11a on phase 3's
+     gather cell (524,288 pairs x 100, f32 and f64 tables,
+     --ignore_miss_data off and on), pair_em.cu capped at 16 with the eps
+     export, then its survivors resumed warm from its f64 state, against
+     the one-phase launch bit for bit; pair_em_phased against
+     pair_em_gather bit for bit; the capped launch's f and eps against the
+     plain version; the one-phase, phase 1, pull-and-sort, phase 2 and
+     phased times and the pair-iterations each executed; 11b on phase 3's
+     strip cell (256 tiles x 100) strip_em.cu with and without want_eps at
+     caps 100 and 30 (f, r2p, nIter, n_used bit-equal), the eps semantics
+     on every live cell, eps against the plain version on 8 tiles, both
+     times; 11c strip_em_twophase (cap1 30) against strip_em_compact on
+     the cell's live cells: rows that stopped in phase A bit-equal,
+     survivors within 5e-5 and nIter within 1 on more than 95%, both
+     walls and the survivors
 
 Then one JSON line of per-kernel results and, last, the `ok` line. Any
 failure exits non-zero without those lines; so does a machine without a
@@ -208,6 +225,7 @@ PANEL_I = 512                    # simulated panel, tiled to a large cohort
 BIG_I, ROWS_I, BIG_P = 20_000, 4_000, 2_048   # the large-cohort gather cells
 BIG_STRIP_S = 1_024              # streamed strip cell: 36 all-pairs tiles
 BIG_S = 2_048                    # large-cohort CLI runs: sites
+DENSE_IND_S = 1_024              # 9c's dense --shard_ind leg: its first sites
 # the rows rung through the CLI on full default blocks: the panel tiled to
 # FULL_I individuals, FULL_S sites, a band and sampling rate that fill one
 # --chunk_pairs block and part of a second
@@ -1009,10 +1027,11 @@ def _hold_between(a, b, label):
 
 # --------------------------------------------------------------- phase 3c
 
-# (source, the EM kernel's name in it): the instances built without
-# --ignore_miss_data, the ones every timed cell runs
-STRIP_KERNELS = (("strip_em", "strip_em_kernel"),
-                 ("strip_em_stream", "strip_em_stream_kernel"))
+# (source, the EM kernel's name in it, a part of its mangled name): the
+# instances built without --ignore_miss_data (and, for strip_em.cu,
+# without the eps export), the ones every timed cell runs
+STRIP_KERNELS = (("strip_em", "strip_em_kernel", "ILb0ELb0E"),
+                 ("strip_em_stream", "strip_em_stream_kernel", "ILb0E"))
 
 
 def _sass_lines(kernels=None):
@@ -1025,8 +1044,7 @@ def _sass_lines(kernels=None):
                                                 sass_inner_loop)
     paths = build_libraries()
     out = {}
-    for src, kernel, *more in kernels or [(s, k, "ILb0E")
-                                          for s, k in STRIP_KERNELS]:
+    for src, kernel, *more in kernels or STRIP_KERNELS:
         parts = [kernel, *more]
         loop = sass_inner_loop(cuobjdump(paths[src], "-sass"), parts)
         if loop is None or loop["fp64"] < 24:
@@ -1152,8 +1170,9 @@ def phase_strip_design(card):
 # --------------------------------------------------------------- phase 3d
 
 # (source, kernel, a part of its mangled name): the f32-table instances
-# built without --ignore_miss_data, the ones the timed cells run
-GATHER_KERNELS_SASS = (("pair_em", "pair_em_kernel", "IfLb0E"),
+# built without --ignore_miss_data (and, for pair_em.cu, without the
+# options), the ones the timed cells run
+GATHER_KERNELS_SASS = (("pair_em", "pair_em_kernel", "IfLb0ELb0E"),
                        ("pair_em_rows", "pair_em_rows_kernel", "IfLb0E"),
                        ("pair_em_ichunk", "pair_em_cluster_kernel", "IfLb0E"),
                        ("pair_em_ichunk", "pair_em_ichunk_kernel", "IfLb0E"))
@@ -1214,7 +1233,7 @@ def _group_sweep(card, sass):
         raise AssertionError("pair_em_gather: two launches on the same "
                              "inputs differ")
     n_iter = base[1].cpu().numpy()
-    regs = sass["pair_em_kernelIfLb0E"]["regs"]
+    regs = sass["pair_em_kernelIfLb0ELb0E"]["regs"]
     rows = {}
     for g in GROUPS:
         with _attr(pmod, "gather_group", lambda *a, g=g, **k: g):
@@ -1928,8 +1947,8 @@ def _zero_launches():
     from ngsld_tpu_torch.kernels import pair_em as pmod
     from ngsld_tpu_torch.kernels import strip_em as smod
     pmod.LAUNCHES = pmod.LAUNCHES_ROWS = pmod.LAUNCHES_ICHUNK = 0
-    pmod.LAUNCHES_ICHUNK_STREAM = 0
-    smod.LAUNCHES = smod.LAUNCHES_STREAM = 0
+    pmod.LAUNCHES_ICHUNK_STREAM = pmod.LAUNCHES_OPTS = 0
+    smod.LAUNCHES = smod.LAUNCHES_STREAM = smod.LAUNCHES_EPS = 0
 
 
 def _read_launches():
@@ -3252,12 +3271,28 @@ def _ind_steps_nccl(card):
           f"{st[3]:.3e} [{card}]")
 
 
+def _first_sites(argv, n_sites, n_ind, d):
+    """argv with its binary GL file and its POS file cut to their first
+    n_sites sites (copies written in d)."""
+    argv = list(argv)
+    gi, pi, si = (argv.index(k) + 1 for k in ("--geno", "--pos", "--n_sites"))
+    glf = os.path.join(d, f"first_{n_sites}_{n_ind}.glf")
+    pos = os.path.join(d, f"first_{n_sites}.pos")
+    with open(argv[gi], "rb") as fa, open(glf, "wb") as fb:
+        fb.write(fa.read(n_sites * n_ind * 3 * 8))
+    with open(argv[pi]) as fa, open(pos, "w") as fb:
+        fb.writelines(line for _, line in zip(range(n_sites), fa))
+    argv[gi], argv[pi], argv[si] = glf, pos, str(n_sites)
+    return argv
+
+
 def phase_shard(tmp, card, real, large):
     """Phase 9: the block engine on two ranks sharing the card (gloo),
     started through launcher variables: 9a --shard 2 on phase 5's gather
     cell, 9b --shard 2 on its strip cell, 9c --shard_ind 2 on phase 5b's
-    2,048 x 4,000 file (sampled: the gather step; dense: the strip step),
-    9d the two --shard_ind steps over NCCL at world size 1."""
+    2,048 x 4,000 file, sampled (the gather step), and dense (the strip
+    step) on its first DENSE_IND_S sites, 9d the two --shard_ind steps over
+    NCCL at world size 1."""
     import torch
     d = os.path.join(tmp, "shard")
     os.makedirs(d, exist_ok=True)
@@ -3305,13 +3340,18 @@ def phase_shard(tmp, card, real, large):
           f"wall {wall:.3f} s (two new processes) [{card}]")
     _rank_lines(launches, tims, ("strip_em",))
 
-    # ---- 9c: --shard_ind 2 on the 2,048 x 4,000 file, sampled and dense
+    # ---- 9c: --shard_ind 2 on the 2,048 x 4,000 file, sampled (the
+    # gather step), and dense (the strip step) on its first DENSE_IND_S
+    # sites, a cut of depth for the run's time
     sampled = ["--rnd_sample", "0.1", "--seed", "12345"]
-    for name, extra, count in (("sampled", sampled, "ind_blocks"),
-                               ("dense", [], "ind_strip_chunks")):
+    for name, extra, count, n_sites in (
+            ("sampled", sampled, "ind_blocks", BIG_S),
+            ("dense", [], "ind_strip_chunks", DENSE_IND_S)):
         argv = large["argv_for"](ROWS_I, BIG_S, 128, extra)
         argv = argv[:argv.index("--verbose")] + ["--verbose", "0",
                                                  "--precision", "f32"]
+        if n_sites < BIG_S:
+            argv = _first_sites(argv, n_sites, ROWS_I, d)
         ref = os.path.join(d, f"ind1_{name}.ld")
         _zero_launches()
         (rc, err), wall1 = _timed(lambda: _cli(argv + ["--out", ref]))
@@ -3327,7 +3367,7 @@ def phase_shard(tmp, card, real, large):
             raise AssertionError(f"9c {name}: counters {c}")
         rows = _read_lines(out)
         eq, near = _same_pairs(_read_lines(ref), rows, f"9c {name}")
-        print(f"  9c --shard_ind 2, {BIG_S} x {ROWS_I} {name} ({count}: "
+        print(f"  9c --shard_ind 2, {n_sites} x {ROWS_I} {name} ({count}: "
               f"{c[count]}): {len(rows) - 1} rows, the pair set of the "
               f"--shard_ind 1 run, {eq} byte-equal, {near} within the f32 "
               f"contract; no kernel launched (the step is torch operations "
@@ -3558,6 +3598,285 @@ def phase_ring_mesh(tmp, card, ring):
     print("  launches a rank over phase 10: " + json.dumps(total))
     return total
 
+# ---------------------------------------------------------------- phase 11
+
+CAP1_GATHER = 16                 # pair_em_phased's phase-1 cap (default)
+CAP1_STRIP = 30                  # strip_em_twophase's phase-A cap (default)
+EPS_TILES = 8                    # 11b: tiles whose eps meet the plain version
+TWO_PHASE_TOL = 5e-5             # 11c: dev/strip_twophase.py's survivor bound
+
+
+def _host_time(fn, reps=3):
+    """Best of `reps` host-clock seconds of fn() after a warm-up, each
+    closed by a device sync (for callers that pull to the host themselves
+    or sync inside)."""
+    import torch
+    out = fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3, out
+
+
+def _resume(gn, sidx, maf, ign, cap):
+    """A launch capped at cap, then the pairs still running there resumed
+    from its f64 state with the cap ITER_MAX - cap, merged on the device:
+    ((f in gn's dtype, n_iter, n_used), the capped launch's outputs, the
+    survivors' indices, the resumed launch's n_iter)."""
+    import torch
+    from ngsld_tpu_torch.kernels.pair_em import pair_em_gather
+    capped = pair_em_gather(gn, sidx, maf, ign, iter_cap=cap, want_eps=True)
+    f1, it1, nu1, _ = capped
+    un = torch.nonzero(it1 == cap).squeeze(1)
+    f2, it2, nu2 = pair_em_gather(gn, sidx.index_select(1, un), maf, ign,
+                                  iter_cap=100 - cap,
+                                  f0=f1.index_select(0, un))
+    if not torch.equal(nu2, nu1.index_select(0, un)):
+        raise AssertionError("resumed launch: n_used differs")
+    merged = (f1.index_copy(0, un, f2).to(gn.dtype),
+              it1.index_copy(0, un, cap + it2), nu1)
+    return merged, capped, un, it2
+
+
+def _gather_options(card, rep, report):
+    """11a: pair_em.cu's option instance on phase 3's gather cell."""
+    import torch
+    from ngsld_tpu_torch.constants import EPSILON
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    cap = CAP1_GATHER
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        gn, sidx, maf = _table(MAIN_I, 20_000, MAIN_P, 5, dtype, dev)
+        for ign in (False, True):
+            label = f"11a pair_em {tag} P={MAIN_P} I={MAIN_I} " \
+                    f"ignore_miss={ign}"
+            one = pmod.pair_em_gather(gn, sidx, maf, ign)
+            merged, capped, un, it2 = _resume(gn, sidx, maf, ign, cap)
+            if not _same(merged, one):
+                raise AssertionError(f"{label}: capped at {cap} + resumed "
+                                     "differs from the one-phase launch")
+            phased = pmod.pair_em_phased(gn, sidx, maf, ign, cap1=cap)
+            if not all(np.array_equal(np.nan_to_num(a), np.nan_to_num(
+                    b.cpu().numpy())) and np.array_equal(
+                        np.isnan(a), np.isnan(b.cpu().numpy()))
+                    for a, b in zip(phased, one)):
+                raise AssertionError(f"{label}: pair_em_phased differs from "
+                                     "pair_em_gather")
+            # the capped launch against its plain version: f (both f64
+            # states) and eps to the output tolerance, nIter, n_used exact
+            ms_plain, plain = _time(lambda: pmod.pair_em_gather_ref(
+                gn, sidx, maf, ign, iter_cap=cap, want_eps=True), 1, False)
+            err, n_x0 = _check(capped[:3], plain[:3], tol,
+                               f"{label} iter_cap={cap}", quiet=True)
+            e_err = float((capped[3] - plain[3]).abs().max())
+            if not e_err <= tol:
+                raise AssertionError(f"{label}: max |eps_kernel - "
+                                     f"eps_plain| {e_err} > {tol}")
+            it1 = capped[1].cpu().numpy()
+            eps = capped[3].cpu().numpy()
+            late = (it1 < cap) & (it1 >= 1)
+            if not ((eps[late, 0] < EPSILON).all()
+                    and (eps[late, 1] >= EPSILON).all()
+                    and (eps[it1 == cap, 0] >= EPSILON).all()):
+                raise AssertionError(f"{label}: eps semantics broken")
+            print(f"  {label}: capped at {cap} + {len(un)} survivors resumed "
+                  f"warm = the one-phase launch bit for bit; pair_em_phased "
+                  f"= pair_em_gather bit for bit; capped launch vs plain: "
+                  f"max|df| {err:.3e}, max|d eps| {e_err:.3e} (tol {tol:g}), "
+                  f"nIter and n_used exact, x=0 pairs {n_x0}")
+            if ign:
+                continue
+            ms_one, _ = _time(lambda: pmod.pair_em_gather(gn, sidx, maf, ign))
+            ms_p1, _ = _time(lambda: pmod.pair_em_gather(
+                gn, sidx, maf, ign, iter_cap=cap, want_eps=True))
+            f1, it1_d, _, eps_d = capped
+
+            def pull_and_sort():
+                meta = torch.cat([it1_d.double()[:, None], eps_d],
+                                 dim=1).cpu().numpy()
+                u = np.flatnonzero(meta[:, 0] == cap)
+                return torch.from_numpy(u[pmod.phase2_order(
+                    torch.from_numpy(meta[u, 1]),
+                    torch.from_numpy(meta[u, 2])).numpy()]).to(dev)
+            ms_sort, idx = _host_time(pull_and_sort)
+            sidx2, f02 = sidx.index_select(1, idx), f1.index_select(0, idx)
+            ms_p2, _ = _time(lambda: pmod.pair_em_gather(
+                gn, sidx2, maf, ign, iter_cap=100 - cap, f0=f02))
+            ms_phased, _ = _host_time(
+                lambda: pmod.pair_em_phased(gn, sidx, maf, ign, cap1=cap))
+            ms_one_pull, _ = _host_time(
+                lambda: [t.cpu() for t in pmod.pair_em_gather(gn, sidx, maf,
+                                                              ign)])
+            # pair-iterations: a pair that stops at 0-based n ran n + 1
+            n_one = one[1].cpu().numpy().astype(np.int64)
+            counted = int(np.minimum(n_one + 1, 100).sum())
+            exec1 = int(np.minimum(it1.astype(np.int64) + 1, cap).sum())
+            exec2 = int(np.minimum(it2.cpu().numpy().astype(np.int64) + 1,
+                                   100 - cap).sum())
+            # the capped launch's bound: bytes once (table, index, MAFs in;
+            # f64 f, two counts and f64 eps out), the updates it needs
+            esz = gn.element_size()
+            n_bytes = (gn.numel() + maf.numel()) * esz + sidx.numel() * 4 \
+                + MAIN_P * (32 + 8 + 16)
+            b_ms, b_by = _bound(n_bytes, exec1 * MAIN_I * FLOPS_PER_EVAL)
+            phase3 = (f"{rep[tag]['ms']:.3f} ms" if rep and tag in rep
+                      else "not run")
+            print(f"  {label}: one phase {ms_one:.3f} ms (phase 3 "
+                  f"{phase3}); phase 1 (cap {cap}, eps) {ms_p1:.3f} ms, "
+                  f"bound {b_ms:.3f} ms by {b_by}, plain version "
+                  f"{ms_plain:.3f} ms; pull and sort "
+                  f"{ms_sort:.3f} ms (host clock); phase 2 ({len(un)} "
+                  f"survivors, hardest first) {ms_p2:.3f} ms; phase 1 + "
+                  f"pull + phase 2 {ms_p1 + ms_sort + ms_p2:.3f} ms; "
+                  f"pair_em_phased {ms_phased:.3f} ms against the one-phase "
+                  f"launch with its pull {ms_one_pull:.3f} ms (host clock); "
+                  f"pair-iterations executed: one phase {counted}, phased "
+                  f"{exec1} + {exec2} = {exec1 + exec2} (counted {counted}) "
+                  f"[{card}]")
+            report[tag] = dict(ms=ms_p1, plain_ms=ms_plain, bound_ms=b_ms,
+                               bound_by=b_by, max_abs_err=max(err, e_err),
+                               ms_one=ms_one, ms_sort=ms_sort, ms_p2=ms_p2,
+                               ms_phased=ms_phased, n_surv=len(un))
+        del gn, sidx, maf
+    torch.cuda.synchronize()
+
+
+
+def _strip_eps_semantics(nit, epsl, epsp, live, cap, label):
+    """The reference's eps contract (tests/test_pallas_strip.py:706-748)
+    on every live cell: a cell stopped at iteration n >= 1 last moved
+    below EPSILON and before that not; a cell at the cap not below it;
+    dead cells keep 1. Compared in f32, where the kernel rounds its f64
+    eps. Returns the cells at the cap."""
+    from ngsld_tpu_torch.constants import EPSILON
+    eps32 = np.float32(EPSILON)
+    nt, el, ep = nit[live], epsl[live], epsp[live]
+    late = (nt < cap) & (nt >= 1)
+    capped = nt == cap
+    if not ((el[late] <= eps32).all() and (ep[late] >= eps32).all()
+            and (el[capped] >= eps32).all()
+            and (epsl[~live] == 1).all() and (epsp[~live] == 1).all()):
+        raise AssertionError(f"{label}: eps semantics broken")
+    return int(capped.sum())
+
+
+def _strip_options(card, report):
+    """11b: strip_em.cu's eps export; 11c: strip_em_twophase, both on phase
+    3's strip cell."""
+    import torch
+    from ngsld_tpu_torch.kernels.strip_em import (strip_em, strip_em_compact,
+                                                  strip_em_ref)
+    from ngsld_tpu_torch.kernels.strip_twophase import strip_em_twophase
+    dev = torch.device("cuda", 0)
+    args, live, _ = _strip_case(MAIN_I, STRIP_S, STRIP_TILES, 5, dev)
+    kw = dict(n_ind=MAIN_I)
+    cells = f"tiles={STRIP_TILES} I={MAIN_I}"
+    # ---- 11b: the export leaves the outputs as they were; its semantics;
+    # its values against the plain version on a slice of tiles
+    for cap in (100, CAP1_STRIP):
+        label = f"11b strip_em {cells} iter_cap={cap}"
+        ms_base, base = _time(lambda: strip_em(*args, iter_cap=cap, **kw))
+        ms_eps, out = _time(lambda: strip_em(*args, iter_cap=cap,
+                                             want_eps=True, **kw))
+        if not _same(out[:4], base):
+            raise AssertionError(f"{label}: want_eps changed f, r2p, nIter "
+                                 "or n_used")
+        nit, el, ep = (t.cpu().numpy() for t in (out[2], out[4], out[5]))
+        n_cap = _strip_eps_semantics(nit, el, ep, live, cap, label)
+        sl = args[:10] + (args[10][:EPS_TILES], args[11][:EPS_TILES])
+        ms_plain, plain = _time(lambda: strip_em_ref(
+            *sl, iter_cap=cap, want_eps=True, **kw), 1, False)
+        if not torch.equal(plain[2], out[2][:EPS_TILES]):
+            raise AssertionError(f"{label}: nIter differs from the plain "
+                                 "version")
+        e_err = max(float((plain[k] - out[k][:EPS_TILES]).abs().max())
+                    for k in (4, 5))
+        if not e_err <= F32_TOL:
+            raise AssertionError(f"{label}: max |eps_kernel - eps_plain| "
+                                 f"{e_err} > {F32_TOL}")
+        # bound: phase 3's count with the two eps planes written, and
+        # the updates this cap needs
+        nit_live = base[2][torch.from_numpy(live).to(dev)]
+        n_bytes = _strip_bound(args, nit_live, MAIN_I)[2] \
+            + out[4].numel() * 8
+        b_ms, b_by = _bound(n_bytes, _needed_evals(nit_live, MAIN_I, cap)
+                            * FLOPS_PER_EVAL + STRIP_TILES * 128 * 128 * 2
+                            * args[0].shape[2])
+        print(f"  {label}: want_eps leaves f, r2p, nIter, n_used bit-equal; "
+              f"eps semantics hold on {int(live.sum())} live cells ({n_cap} "
+              f"at the cap); eps vs plain on {EPS_TILES} tiles max|d| "
+              f"{e_err:.3e} (tol {F32_TOL:g}); {ms_eps:.3f} ms with eps, "
+              f"{ms_base:.3f} ms without, bound {b_ms:.3f} ms by {b_by}; "
+              f"plain version {ms_plain:.3f} ms for {EPS_TILES} tiles "
+              f"[{card}]")
+        if cap == CAP1_STRIP:
+            ms_a = ms_eps
+            report["strip"] = dict(ms=ms_eps, plain_ms=ms_plain,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   max_abs_err=e_err, ms_without=ms_base)
+    # ---- 11c: two phases against one, on the live cells
+    sel = torch.from_numpy(np.flatnonzero(live.reshape(-1))
+                           .astype(np.int32)).to(dev)
+    C = int(sel.numel())
+    ms_one, (fm1, im1) = _time(lambda: strip_em_compact(*args, sel, **kw))
+    ms_two, (fm2, im2, n_surv) = _time(lambda: strip_em_twophase(
+        *args, sel, C, cap1=CAP1_STRIP, surv_cap=C, **kw))
+    fm1, im1, fm2, im2 = (t.cpu().numpy() for t in (fm1, im1, fm2, im2))
+    it1, it2 = im1[:, 0].astype(np.int32), im2[:, 0].astype(np.int32)
+    conv = it1 < CAP1_STRIP
+    label = f"11c strip_em_twophase {cells} cap1={CAP1_STRIP}"
+    if n_surv != int((~conv).sum()):
+        raise AssertionError(f"{label}: {n_surv} survivors, phase A of the "
+                             f"one-phase run leaves {int((~conv).sum())}")
+    if not (np.array_equal(np.isnan(fm1[conv]), np.isnan(fm2[conv]))
+            and np.array_equal(np.nan_to_num(fm1[conv]),
+                               np.nan_to_num(fm2[conv]))
+            and np.array_equal(im1[conv], im2[conv])
+            and np.array_equal(im1[:, 1], im2[:, 1])):
+        raise AssertionError(f"{label}: rows that stopped in phase A are not "
+                             "bit-equal")
+    a, b = fm1[~conv], fm2[~conv]
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError(f"{label}: survivors' NaN positions differ")
+    s_err = float(np.max(np.abs(np.nan_to_num(a) - np.nan_to_num(b)),
+                         initial=0))
+    within = float((np.abs(it1[~conv] - it2[~conv]) <= 1).mean())
+    if not (s_err <= TWO_PHASE_TOL and within > 0.95):
+        raise AssertionError(f"{label}: survivors max|d| {s_err} (tol "
+                             f"{TWO_PHASE_TOL}), nIter within 1 on "
+                             f"{within:.4f}")
+    print(f"  {label}: {C} rows, {n_surv} survivors; rows stopped in phase A "
+          f"bit-equal to strip_em_compact; survivors max|d| {s_err:.3e} (tol "
+          f"{TWO_PHASE_TOL:g}), nIter within 1 on {within:.4f} (equal on "
+          f"{float((it1[~conv] == it2[~conv]).mean()):.4f}); one phase "
+          f"{ms_one:.3f} ms, two phases {ms_two:.3f} ms (phase A with eps "
+          f"{ms_a:.3f} ms) [{card}]")
+    report["twophase"] = dict(ms_one=ms_one, ms_two=ms_two, n_surv=n_surv)
+    del args
+    torch.cuda.synchronize()
+
+
+def phase_options(card, rep):
+    """Phase 11: the kernel options (pair_em.cu's cap, warm start and eps;
+    strip_em.cu's eps) and their drivers. Returns the measurements and
+    each wrapper's option-instance launches in the phase."""
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    from ngsld_tpu_torch.kernels import strip_em as smod
+    pmod.LAUNCHES_OPTS = smod.LAUNCHES_EPS = 0
+    report = {}
+    _gather_options(card, rep, report)
+    _strip_options(card, report)
+    report["launches"] = dict(pair_em=pmod.LAUNCHES_OPTS,
+                              strip_em=smod.LAUNCHES_EPS)
+    print(f"  option-instance launches in phase 11: "
+          + json.dumps(report["launches"]))
+    return report
+
 
 def main(argv=()) -> int:
     import torch
@@ -3594,6 +3913,17 @@ def main(argv=()) -> int:
         _phase(results, "3d gather kernels' design",
                lambda: phase_gather_design(card))
         print("chip_smoke --gather-only: "
+              + ("PASS" if all(results) else "FAILED"))
+        return 0 if all(results) else 1
+    if "--kernels-only" in argv:
+        # the kernels and their options: build, phase 3, phase 11; prints
+        # neither the kernels line nor the ok line
+        card = _phase(results, "1 environment", phase_env)
+        _phase(results, "2 build", phase_build)
+        rep = _phase(results, "3 kernel vs plain", lambda: phase_kernel(card))
+        _phase(results, "11 the kernel options",
+               lambda: phase_options(card, rep))
+        print("chip_smoke --kernels-only: "
               + ("PASS" if all(results) else "FAILED"))
         return 0 if all(results) else 1
     if "--shard-only" in argv:
@@ -3657,6 +3987,8 @@ def main(argv=()) -> int:
         if ring is not None:
             mesh_ring = _phase(results, "10 the ring on two ranks",
                                lambda: phase_ring_mesh(tmp, card, ring))
+        opts = _phase(results, "11 the kernel options",
+                      lambda: phase_options(card, rep))
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
@@ -3677,14 +4009,18 @@ def main(argv=()) -> int:
         ("pair_em_ichunk", "pair_em_ichunk.cu", "pallas_em.py:558",
          large["sampled"], big["ichunk"])]
     # ring_mesh_launches: its launches a rank (rank 0, rank 1) over phase
-    # 10's runs on two ranks
+    # 10's runs on two ranks; options_launches: the launches of its option
+    # instance (pair_em.cu's cap, warm start and eps; strip_em.cu's eps)
+    # in phase 11
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ngsld_tpu_torch/csrc/{src}",
          "replaces": f"ngsld_tpu/kernels/{tpu}", "launches": launches,
          **{k: m[k] for k in keys}, "library_ms": None,
          "ring_launches": ring["acc"][_RING_COUNT[name]],
-         "ring_mesh_launches": [lc[_RING_COUNT[name]] for lc in mesh_ring]}
+         "ring_mesh_launches": [lc[_RING_COUNT[name]] for lc in mesh_ring],
+         **({"options_launches": opts["launches"][_RING_COUNT[name]]}
+            if _RING_COUNT[name] in opts["launches"] else {})}
         for name, src, tpu, launches, m in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,6 +55,18 @@
 // not depend on it (lane q of any group adds the same individuals in the
 // same order), so two launches on the same inputs give the same bits.
 //
+// Options (ngsld_pair_em_opts_f32/_f64; the TPU kernel's iter_cap, f0 and
+// epsl_out/epsp_out, pallas_em.py:57-135): an iteration cap, a warm start
+// f0 (P, 4) in double, and the export of each pair's last two update
+// magnitudes, eps (P, 2) double [eps_last, eps_prev]. They run in a second
+// instantiation of the kernel (kOpts); the entry points without them
+// launch the first, whose code is the kernel's without options. On the
+// option path f comes out in double whatever the table dtype: the EM's
+// state is double, and a capped launch resumed warm from a rounded f would
+// part from the one-phase run. eps_last and eps_prev start at 1 and change
+// only while the pair runs (the iteration at which it stops writes them);
+// n_iter is the stop iteration or iter_cap.
+//
 // Semantics kept exactly (ngsld_tpu/ops/em.py:34-107): f0 from the MAFs;
 // n_used counts individuals that pass the miss test |g0-g1| < EPSILON &&
 // |g1-g2| < EPSILON at both sites, only under ignore_miss_data; 1/x with
@@ -68,6 +80,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "em_core.cuh"
 
@@ -91,13 +104,23 @@ __device__ __forceinline__ V group_sum(V v, int G, unsigned mask) {
   return v;
 }
 
-template <typename T, bool kIgnoreMiss>
+// The option path's inputs (kOpts): the cap, the warm start or null (f
+// from the MAFs), the eps output or null.
+struct EmOpts {
+  int iter_cap;
+  const double* f0;   // (P, 4)
+  double* eps;        // (P, 2): eps_last, eps_prev
+};
+
+template <typename T, bool kIgnoreMiss, bool kOpts>
 __global__ void __launch_bounds__(kThreads)
 pair_em_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
                const T* __restrict__ maf, int64_t P, int I, int G, int slot,
                unsigned long long* __restrict__ next,
-               T* __restrict__ f_out, int32_t* __restrict__ n_iter_out,
-               int32_t* __restrict__ n_used_out) {
+               std::conditional_t<kOpts, double, T>* __restrict__ f_out,
+               int32_t* __restrict__ n_iter_out,
+               int32_t* __restrict__ n_used_out, EmOpts opts) {
+  const int cap = kOpts ? opts.iter_cap : kIterMax;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int q = lane & (G - 1);       // this lane's place in its group
@@ -115,13 +138,15 @@ pair_em_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
 
   int64_t p = fetch(kFullMask);
   double f0 = 0, f1 = 0, f2 = 0, f3 = 0, inv_x = 0;
+  double e_last = 1.0, e_prev = 1.0;   // kOpts: the last two eps
   int cnt = 0, it = 0;
 
   // stage pair p's rows into the slot (this lane's individuals), count
-  // n_used, start f from the MAFs
+  // n_used, start f from the MAFs (or from the warm start)
   auto take = [&](unsigned mask) {
     it = 0;
     cnt = 0;
+    if (kOpts) e_last = e_prev = 1.0;
     if (p < P) {
       const int64_t s1 = sidx[p], s2 = sidx[P + p];
       const T* __restrict__ g1 = gn + s1 * I * 3;
@@ -141,11 +166,18 @@ pair_em_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
         r2[3 * i + 1] = y1;
         r2[3 * i + 2] = y2;
       }
-      const double m1 = maf[s1], m2 = maf[s2];
-      f0 = (1.0 - m1) * (1.0 - m2);
-      f1 = (1.0 - m1) * m2;
-      f2 = m1 * (1.0 - m2);
-      f3 = m1 * m2;
+      if (kOpts && opts.f0) {
+        f0 = opts.f0[4 * p];
+        f1 = opts.f0[4 * p + 1];
+        f2 = opts.f0[4 * p + 2];
+        f3 = opts.f0[4 * p + 3];
+      } else {
+        const double m1 = maf[s1], m2 = maf[s2];
+        f0 = (1.0 - m1) * (1.0 - m2);
+        f1 = (1.0 - m1) * m2;
+        f2 = m1 * (1.0 - m2);
+        f3 = m1 * m2;
+      }
     }
     cnt = group_sum(cnt, G, mask);
     inv_x = 1.0 / (double)cnt;
@@ -173,24 +205,33 @@ pair_em_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
     bool done = false;
     int n_iter = 0;
     if (p < P) {
+      if (kOpts) {
+        e_prev = e_last;
+        e_last = eps;
+      }
       if (eps < kEpsilon) {
         done = true;
         n_iter = it;
-      } else if (++it == kIterMax) {
+      } else if (++it == cap) {
         done = true;
-        n_iter = kIterMax;
+        n_iter = cap;
       }
     }
     // the switch: the groups whose pair stopped write it and take the next
     const unsigned dmask = __ballot_sync(kFullMask, done);
     if (done) {
       if (q == 0) {
-        f_out[4 * p + 0] = (T)f0;
-        f_out[4 * p + 1] = (T)f1;
-        f_out[4 * p + 2] = (T)f2;
-        f_out[4 * p + 3] = (T)f3;
+        using F = std::conditional_t<kOpts, double, T>;
+        f_out[4 * p + 0] = (F)f0;
+        f_out[4 * p + 1] = (F)f1;
+        f_out[4 * p + 2] = (F)f2;
+        f_out[4 * p + 3] = (F)f3;
         n_iter_out[p] = n_iter;
         n_used_out[p] = cnt;
+        if (kOpts && opts.eps) {
+          opts.eps[2 * p] = e_last;
+          opts.eps[2 * p + 1] = e_prev;
+        }
       }
       p = fetch(dmask);
       take(dmask);
@@ -199,11 +240,11 @@ pair_em_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
   }
 }
 
-template <typename T, bool kIgnoreMiss>
+template <typename T, bool kIgnoreMiss, bool kOpts>
 int launch_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
-               int G, int slot, unsigned long long* next, T* fo, int32_t* it,
-               int32_t* nu, cudaStream_t st) {
-  auto kern = pair_em_kernel<T, kIgnoreMiss>;
+               int G, int slot, unsigned long long* next, void* fo,
+               int32_t* it, int32_t* nu, const EmOpts& opts, cudaStream_t st) {
+  auto kern = pair_em_kernel<T, kIgnoreMiss, kOpts>;
   const size_t smem = (size_t)(kThreads / G) * slot * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -222,30 +263,32 @@ int launch_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
   const int64_t groups = kThreads / G;
   const int64_t blocks =
       std::min<int64_t>((int64_t)per_sm * sms, (P + groups - 1) / groups);
-  pair_em_kernel<T, kIgnoreMiss><<<(unsigned)blocks, kThreads, smem, st>>>(
-      g, ix, m, P, I, G, slot, next, fo, it, nu);
+  using F = std::conditional_t<kOpts, double, T>;
+  kern<<<(unsigned)blocks, kThreads, smem, st>>>(
+      g, ix, m, P, I, G, slot, next, static_cast<F*>(fo), it, nu, opts);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kOpts>
 int launch(const void* gn, const void* sidx, const void* maf, int64_t P,
-           int I, int G, int slot, int ignore_miss, void* next, void* f,
-           void* n_iter, void* n_used, void* stream) {
+           int I, int G, int slot, int ignore_miss, const EmOpts& opts,
+           void* next, void* f, void* n_iter, void* n_used, void* stream) {
   if (P <= 0) return 0;
-  if (I <= 0 || G < 1 || G > 32 || (G & (G - 1)) || slot < 6 * I)
+  if (I <= 0 || G < 1 || G > 32 || (G & (G - 1)) || slot < 6 * I ||
+      (kOpts && opts.iter_cap < 1))
     return (int)cudaErrorInvalidValue;
   const T* g = static_cast<const T*>(gn);
   const int32_t* ix = static_cast<const int32_t*>(sidx);
   const T* m = static_cast<const T*>(maf);
   unsigned long long* nx = static_cast<unsigned long long*>(next);
-  T* fo = static_cast<T*>(f);
   int32_t* it = static_cast<int32_t*>(n_iter);
   int32_t* nu = static_cast<int32_t*>(n_used);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return ignore_miss
-             ? launch_one<T, true>(g, ix, m, P, I, G, slot, nx, fo, it, nu, st)
-             : launch_one<T, false>(g, ix, m, P, I, G, slot, nx, fo, it, nu,
-                                    st);
+             ? launch_one<T, true, kOpts>(g, ix, m, P, I, G, slot, nx, f, it,
+                                          nu, opts, st)
+             : launch_one<T, false, kOpts>(g, ix, m, P, I, G, slot, nx, f,
+                                           it, nu, opts, st);
 }
 
 }  // namespace
@@ -253,21 +296,47 @@ int launch(const void* gn, const void* sidx, const void* maf, int64_t P,
 extern "C" {
 
 // slot: a group's shared-memory stride in table values; next: one zeroed
-// 64-bit counter, the pair queue's head.
+// 64-bit counter, the pair queue's head. f (P, 4) in the table dtype.
 int ngsld_pair_em_f32(const void* gn, const void* sidx, const void* maf,
                       int64_t P, int I, int G, int slot, int ignore_miss,
                       void* next, void* f, void* n_iter, void* n_used,
                       void* stream) {
-  return launch<float>(gn, sidx, maf, P, I, G, slot, ignore_miss, next, f,
-                       n_iter, n_used, stream);
+  return launch<float, false>(gn, sidx, maf, P, I, G, slot, ignore_miss,
+                              EmOpts{kIterMax, nullptr, nullptr}, next, f,
+                              n_iter, n_used, stream);
 }
 
 int ngsld_pair_em_f64(const void* gn, const void* sidx, const void* maf,
                       int64_t P, int I, int G, int slot, int ignore_miss,
                       void* next, void* f, void* n_iter, void* n_used,
                       void* stream) {
-  return launch<double>(gn, sidx, maf, P, I, G, slot, ignore_miss, next, f,
-                        n_iter, n_used, stream);
+  return launch<double, false>(gn, sidx, maf, P, I, G, slot, ignore_miss,
+                               EmOpts{kIterMax, nullptr, nullptr}, next, f,
+                               n_iter, n_used, stream);
+}
+
+// The option path: iter_cap >= 1; f0 (P, 4) double or null (from the
+// MAFs); eps (P, 2) double or null. f (P, 4) is double here.
+int ngsld_pair_em_opts_f32(const void* gn, const void* sidx, const void* maf,
+                           int64_t P, int I, int G, int slot, int ignore_miss,
+                           int iter_cap, const void* f0, void* eps, void* next,
+                           void* f, void* n_iter, void* n_used, void* stream) {
+  return launch<float, true>(
+      gn, sidx, maf, P, I, G, slot, ignore_miss,
+      EmOpts{iter_cap, static_cast<const double*>(f0),
+             static_cast<double*>(eps)},
+      next, f, n_iter, n_used, stream);
+}
+
+int ngsld_pair_em_opts_f64(const void* gn, const void* sidx, const void* maf,
+                           int64_t P, int I, int G, int slot, int ignore_miss,
+                           int iter_cap, const void* f0, void* eps, void* next,
+                           void* f, void* n_iter, void* n_used, void* stream) {
+  return launch<double, true>(
+      gn, sidx, maf, P, I, G, slot, ignore_miss,
+      EmOpts{iter_cap, static_cast<const double*>(f0),
+             static_cast<double*>(eps)},
+      next, f, n_iter, n_used, stream);
 }
 
 }  // extern "C"

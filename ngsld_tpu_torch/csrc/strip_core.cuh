@@ -49,7 +49,14 @@
 // and n_used exact, f within 1e-6 after rounding to float). The order
 // depends only on the sub-tile's cells and round_iters, not on the kernel:
 // with equal round_iters and equal R the two kernels agree bit for bit.
-// Build without --use_fast_math.
+//
+// The eps export (kEps, resident kernel only; the TPU kernel's want_eps,
+// pallas_strip.py:79): each cell's last two update magnitudes, epsl and
+// epsp (n, TA, TB) float, start at 1, change only while the cell runs (the
+// iteration at which it stops writes them) and move with the cell at a
+// repack in two float planes of shared memory; dead cells keep 1. The
+// stop decision stays on the double eps, so f, r2p, n_iter and n_used are
+// those of the kernel without the export. Build without --use_fast_math.
 
 #pragma once
 
@@ -79,13 +86,16 @@ __host__ __device__ constexpr int64_t strip_raw_floats(int rows, int ic) {
 // Dynamic shared memory of a block, bytes: the frequency plane, the staged
 // records (streamed: two buffers of a chunk, and the raw floats of a
 // third), the cells' n_used, the work list, the warps' counts (two sets,
-// used in turn) and the warps' masks of rows and columns in use.
+// used in turn), the warps' masks of rows and columns in use (streamed)
+// and the two eps planes (eps).
 __host__ __device__ constexpr int64_t strip_smem_bytes(int rows, int ic,
-                                                       bool streamed) {
+                                                       bool streamed,
+                                                       bool eps = false) {
   return (int64_t)4 * rows * kCols * 8 +
          (int64_t)(streamed ? 2 : 1) * ic * strip_rec(rows) * 8 +
          (streamed ? strip_raw_floats(rows, ic) * 4 : 0) + rows * kCols * 4 +
-         rows * kCols * 2 + (streamed ? 3 : 2) * rows * 4;
+         rows * kCols * 2 + (streamed ? 3 : 2) * rows * 4 +
+         (eps ? 2 * rows * kCols * 4 : 0);
 }
 
 struct StripArgs {
@@ -100,11 +110,13 @@ struct StripArgs {
   int TA, TB, iter_cap, round_iters;
   float *f, *r2p;
   int32_t *n_iter, *n_used;
+  float *epsl, *epsp;   // the eps export's outputs (kEps)
 };
 
-template <bool kIgnoreMiss, bool kStreamed, int kRows>
+template <bool kIgnoreMiss, bool kStreamed, int kRows, bool kEps = false>
 __device__ __forceinline__ void strip_block(const StripArgs& g,
                                             unsigned char* smem) {
+  static_assert(!(kEps && kStreamed), "the eps export: resident body only");
   constexpr int kCells = kRows * kCols;
   constexpr int kThreads = kCells;          // one seat a cell
   constexpr int kWarps = kThreads / 32;     // = kRows
@@ -122,6 +134,8 @@ __device__ __forceinline__ void strip_block(const StripArgs& g,
   uint16_t* sList = reinterpret_cast<uint16_t*>(sCnt + kCells);
   int32_t* sWc = reinterpret_cast<int32_t*>(sList + kCells);  // [2][kWarps]
   uint32_t* sWm = reinterpret_cast<uint32_t*>(sWc + 2 * kWarps);  // [kWarps]
+  float* sE = reinterpret_cast<float*>(sWc + (kStreamed ? 3 : 2) * kWarps);
+                                                 // kEps: [2][kCells]
 
   const int t = blockIdx.x;
   const int col_blocks = g.TB / kCols;
@@ -144,6 +158,14 @@ __device__ __forceinline__ void strip_block(const StripArgs& g,
     f_tile[2 * cells + o] = (float)f2;
     f_tile[3 * cells + o] = (float)f3;
     it_tile[o] = n_iter;
+  };
+  // kEps: a stopped cell's last two eps, to its place in the tile
+  auto write_eps = [&](int cell, float e_last, float e_prev) {
+    const int64_t o = (int64_t)t * cells +
+                      (int64_t)(arow0 + cell / kCols) * g.TB + bcol0 +
+                      cell % kCols;
+    g.epsl[o] = e_last;
+    g.epsp[o] = e_prev;
   };
 
   // ---- every cell, by its home thread (row = warp, col = lane): r2p on
@@ -186,8 +208,12 @@ __device__ __forceinline__ void strip_block(const StripArgs& g,
                     g.ok_b[b] > 0.0f;
   int cell = tid;
   bool running = live && g.iter_cap > 0;
-  // a dead cell keeps the init and n_iter = iter_cap
-  if (!running) write_out(cell, f0, f1, f2, f3, g.iter_cap);
+  float e_last = 1.0f, e_prev = 1.0f;   // kEps: the cell's last two eps
+  // a dead cell keeps the init and n_iter = iter_cap (and eps 1)
+  if (!running) {
+    write_out(cell, f0, f1, f2, f3, g.iter_cap);
+    if (kEps) write_eps(cell, e_last, e_prev);
+  }
   double inv_x = 1.0 / (double)cnt;
 
   // ---- staging
@@ -322,6 +348,10 @@ __device__ __forceinline__ void strip_block(const StripArgs& g,
         sF[kCells + cell] = f1;
         sF[2 * kCells + cell] = f2;
         sF[3 * kCells + cell] = f3;
+        if (kEps) {
+          sE[cell] = e_last;
+          sE[kCells + cell] = e_prev;
+        }
       }
       if (kStreamed) {   // the rows and column groups still read
         const uint32_t mine =
@@ -347,6 +377,10 @@ __device__ __forceinline__ void strip_block(const StripArgs& g,
         f1 = sF[kCells + cell];
         f2 = sF[2 * kCells + cell];
         f3 = sF[3 * kCells + cell];
+        if (kEps) {
+          e_last = sE[cell];
+          e_prev = sE[kCells + cell];
+        }
         inv_x = 1.0 / (double)sCnt[cell];
       }
       last_run = n_run;
@@ -372,10 +406,25 @@ __device__ __forceinline__ void strip_block(const StripArgs& g,
         a2 += __shfl_xor_sync(0xffffffffu, a2, o);
         a3 += __shfl_xor_sync(0xffffffffu, a3, o);
       }
-      if (running &&
-          em_update(f0, f1, f2, f3, a0, a1, a2, a3, inv_x) < kEpsilon) {
-        if (q == 0) write_out(cell, f0, f1, f2, f3, it);
-        running = false;
+      if constexpr (kEps) {
+        if (running) {
+          const double eps = em_update(f0, f1, f2, f3, a0, a1, a2, a3, inv_x);
+          e_prev = e_last;
+          e_last = (float)eps;
+          if (eps < kEpsilon) {
+            if (q == 0) {
+              write_out(cell, f0, f1, f2, f3, it);
+              write_eps(cell, e_last, e_prev);
+            }
+            running = false;
+          }
+        }
+      } else {
+        if (running &&
+            em_update(f0, f1, f2, f3, a0, a1, a2, a3, inv_x) < kEpsilon) {
+          if (q == 0) write_out(cell, f0, f1, f2, f3, it);
+          running = false;
+        }
       }
     };
 
@@ -427,7 +476,10 @@ __device__ __forceinline__ void strip_block(const StripArgs& g,
     }
     // a cell that reaches the cap stops there
     if (running && it0 + g.round_iters >= g.iter_cap) {
-      if (q == 0) write_out(cell, f0, f1, f2, f3, g.iter_cap);
+      if (q == 0) {
+        write_out(cell, f0, f1, f2, f3, g.iter_cap);
+        if (kEps) write_eps(cell, e_last, e_prev);
+      }
       running = false;
     }
   }
@@ -443,7 +495,8 @@ inline StripArgs strip_args(const void* ga, const void* gb, const void* ea,
                             const void* tb, int64_t Sa, int64_t Sb, int Ip,
                             int I, int TA, int TB, int iter_cap,
                             int round_iters, void* f, void* r2p, void* n_iter,
-                            void* n_used) {
+                            void* n_used, void* epsl = nullptr,
+                            void* epsp = nullptr) {
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto N = [](const void* p) { return static_cast<const int32_t*>(p); };
   StripArgs g;
@@ -458,6 +511,8 @@ inline StripArgs strip_args(const void* ga, const void* gb, const void* ea,
   g.f = static_cast<float*>(f); g.r2p = static_cast<float*>(r2p);
   g.n_iter = static_cast<int32_t*>(n_iter);
   g.n_used = static_cast<int32_t*>(n_used);
+  g.epsl = static_cast<float*>(epsl);
+  g.epsp = static_cast<float*>(epsp);
   return g;
 }
 

@@ -9,8 +9,11 @@
 // maf, ok (> 0 = usable) for both axes, and per-anchor live-partner bounds
 // [lo, hi) in partner-axis coordinates. Outputs, tile layout:
 // f (n, 4, TA, TB) float, r2p (n, TA, TB) float, n_iter and n_used
-// (n, TA, TB) int32. The caller guarantees that every tile lies inside the
-// tables. The anchor and partner tables may cover different site ranges.
+// (n, TA, TB) int32; with the eps export (epsl and epsp not null; the TPU
+// kernel's want_eps), each cell's last two update magnitudes, epsl and
+// epsp (n, TA, TB) float (strip_core.cuh says when they change). The
+// caller guarantees that every tile lies inside the tables. The anchor and
+// partner tables may cover different site ranges.
 //
 // Per cell (a, b):
 //   * r2p = (sum_i ea[a, i] * eb[i, b])^2, accumulated in double here in
@@ -52,7 +55,10 @@
 // block. The inner loop is shared-memory loads and double-precision
 // arithmetic only. The TPU kernel's anchor groups, unroll and first-check
 // schedule exist for its scalar convergence syncs; its first_check is the
-// analogue of round_iters. Build without --use_fast_math.
+// analogue of round_iters. The eps export is a second instantiation of the
+// kernel (kEps), with two more float planes of shared memory a block; the
+// launch without it runs the first, whose code is the kernel's without
+// the export. Build without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,20 +69,21 @@ namespace {
 
 constexpr int kRows = 8;   // anchors of a block's sub-tile
 
-template <bool kIgnoreMiss>
+template <bool kIgnoreMiss, bool kEps>
 __global__ void __launch_bounds__(kRows * ngsld::kCols, 2)
 strip_em_kernel(ngsld::StripArgs g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  ngsld::strip_block<kIgnoreMiss, false, kRows>(g, smem);
+  ngsld::strip_block<kIgnoreMiss, false, kRows, kEps>(g, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory a launch for n_ind individuals needs.
-int ngsld_strip_em_smem(int n_ind) {
-  return (int)ngsld::strip_smem_bytes(kRows, n_ind, false);
+// Bytes of dynamic shared memory a launch for n_ind individuals needs,
+// with the eps export or without.
+int ngsld_strip_em_smem(int n_ind, int want_eps) {
+  return (int)ngsld::strip_smem_bytes(kRows, n_ind, false, want_eps != 0);
 }
 
 int ngsld_strip_em(const void* ga, const void* gb, const void* ea,
@@ -86,19 +93,27 @@ int ngsld_strip_em(const void* ga, const void* gb, const void* ea,
                    int n_tiles, int64_t Sa, int64_t Sb, int Ip, int I, int TA,
                    int TB, int iter_cap, int ignore_miss, int round_iters,
                    void* f, void* r2p, void* n_iter, void* n_used,
-                   void* stream) {
+                   void* epsl, void* epsp, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (TA % kRows || TB % ngsld::kCols || round_iters < 1 || I < 1)
+  const bool eps = epsl != nullptr;
+  if (TA % kRows || TB % ngsld::kCols || round_iters < 1 || I < 1 ||
+      eps != (epsp != nullptr))
     return (int)cudaErrorInvalidValue;
   const ngsld::StripArgs g = ngsld::strip_args(
       ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, Sa, Sb, Ip, I,
-      TA, TB, iter_cap, round_iters, f, r2p, n_iter, n_used);
-  const size_t smem = (size_t)ngsld::strip_smem_bytes(kRows, I, false);
+      TA, TB, iter_cap, round_iters, f, r2p, n_iter, n_used, epsl, epsp);
+  const size_t smem = (size_t)ngsld::strip_smem_bytes(kRows, I, false, eps);
+  if (eps)
+    return ignore_miss
+               ? ngsld::strip_launch(strip_em_kernel<true, true>, kRows, g,
+                                     n_tiles, smem, stream)
+               : ngsld::strip_launch(strip_em_kernel<false, true>, kRows, g,
+                                     n_tiles, smem, stream);
   return ignore_miss
-             ? ngsld::strip_launch(strip_em_kernel<true>, kRows, g, n_tiles,
-                                   smem, stream)
-             : ngsld::strip_launch(strip_em_kernel<false>, kRows, g, n_tiles,
-                                   smem, stream);
+             ? ngsld::strip_launch(strip_em_kernel<true, false>, kRows, g,
+                                   n_tiles, smem, stream)
+             : ngsld::strip_launch(strip_em_kernel<false, false>, kRows, g,
+                                   n_tiles, smem, stream);
 }
 
 }  // extern "C"

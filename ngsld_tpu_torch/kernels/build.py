@@ -36,9 +36,13 @@ _vp, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # cudaError of its launch as an int (the *_smem entry points: bytes)
 ENTRY_POINTS = {
     "pair_em": {
-        name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp, _vp,
-               _vp, _vp]
-        for name in ("ngsld_pair_em_f32", "ngsld_pair_em_f64")},
+        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp, _vp,
+                  _vp, _vp]
+           for name in ("ngsld_pair_em_f32", "ngsld_pair_em_f64")},
+        # the option path: iter_cap, f0, eps between ignore_miss and next
+        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _vp, _vp,
+                  _vp, _vp, _vp, _vp, _vp]
+           for name in ("ngsld_pair_em_opts_f32", "ngsld_pair_em_opts_f64")}},
     "pair_em_rows": {
         **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp]
            for name in ("ngsld_pair_em_rows_f32", "ngsld_pair_em_rows_f64")},
@@ -54,8 +58,8 @@ ENTRY_POINTS = {
         "ngsld_pair_em_cluster_occupancy": [_i32] * 5 + [_vp]},
     "strip_em": {
         "ngsld_strip_em": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 7
-        + [_vp] * 5,
-        "ngsld_strip_em_smem": [_i32]},
+        + [_vp] * 7,
+        "ngsld_strip_em_smem": [_i32, _i32]},
     "strip_em_stream": {
         "ngsld_strip_em_stream": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 8
         + [_vp] * 5,

@@ -26,17 +26,28 @@ arithmetic of the three kernels (group size, slot, block width, cluster
 size, threads) lives here, so that the CPU tests reach it. LAUNCHES,
 LAUNCHES_ROWS and LAUNCHES_ICHUNK count kernel launches, nothing else;
 LAUNCHES_ICHUNK_STREAM counts the launches of pair_em_ichunk that took the
-streamed body.
+streamed body, LAUNCHES_OPTS those of pair_em_gather that took the option
+instance.
+
+pair_em_gather also takes the options of pallas_em._em_kernel (an
+iteration cap, a warm start, the export of each pair's last two eps), and
+pair_em_phased is the two-phase driver built on them (pallas_em.
+pair_em_phased): a capped launch, one small pull, the capped pairs resumed
+warm. The rows and ichunk rungs take no options (nothing in the
+reference passes them one).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..constants import EPSILON, ITER_MAX
 from ..ops.em import pair_em
 from .build import smem_limits
 
 LAUNCHES = 0                 # pair_em_gather
+LAUNCHES_OPTS = 0            # pair_em_gather, its option instance
 LAUNCHES_ROWS = 0            # pair_em_rows
 LAUNCHES_ICHUNK = 0          # pair_em_ichunk, either body
 LAUNCHES_ICHUNK_STREAM = 0   # pair_em_ichunk, the streamed body
@@ -76,23 +87,51 @@ CLUSTER_TERMS = 16       # individuals a thread an iteration, at most
 # static shared memory of the cluster body's block, and the card's own
 _CLUSTER_RESERVED = 2048
 
-def _pair_em_ref(gn, sidx, maf, ignore_miss_data, i_chunk=None):
+def _options(iter_cap, f0, want_eps) -> bool:
+    """Whether a call asks for pair_em_gather's options (then f is the
+    f64 state)."""
+    return iter_cap != ITER_MAX or f0 is not None or bool(want_eps)
+
+
+def _check_options(gn, sidx, iter_cap, f0):
+    if int(iter_cap) != iter_cap or iter_cap < 1:
+        raise ValueError(f"iter_cap must be a positive integer, got "
+                         f"{iter_cap}")
+    P = sidx.shape[1]
+    if f0 is not None and (f0.shape != (P, 4) or f0.dtype != torch.float64
+                           or f0.device != gn.device):
+        raise ValueError("f0 must be a (P, 4) float64 tensor on gn's "
+                         f"device, got {tuple(f0.shape)} {f0.dtype} "
+                         f"{f0.device}")
+
+
+def _pair_em_ref(gn, sidx, maf, ignore_miss_data, i_chunk=None,
+                 iter_cap=ITER_MAX, f0=None, want_eps=False):
     s1, s2 = sidx[0].long(), sidx[1].long()
-    f, n_iter, n_used = pair_em(
+    out = pair_em(
         gn.index_select(0, s1).double(), gn.index_select(0, s2).double(),
         maf.index_select(0, s1).double(), maf.index_select(0, s2).double(),
-        ignore_miss_data, i_chunk=i_chunk)
+        ignore_miss_data, i_chunk=i_chunk, iter_cap=iter_cap, f0=f0,
+        want_eps=want_eps)
+    if _options(iter_cap, f0, want_eps):
+        return out
+    f, n_iter, n_used = out
     return f.to(gn.dtype), n_iter, n_used
 
 
 def pair_em_gather_ref(gn: torch.Tensor, sidx: torch.Tensor,
-                       maf: torch.Tensor, ignore_miss_data: bool):
+                       maf: torch.Tensor, ignore_miss_data: bool,
+                       iter_cap: int = ITER_MAX,
+                       f0: torch.Tensor | None = None,
+                       want_eps: bool = False):
     """Plain twin: index_select of both sites' rows, then ops.em.pair_em.
 
     As in the kernel, the EM runs in f64 whatever the table dtype, and f
     comes back in the table dtype: an f32 EM stops one iteration away from
-    the f64 reference wherever eps lands within f32 rounding of EPSILON."""
-    return _pair_em_ref(gn, sidx, maf, ignore_miss_data)
+    the f64 reference wherever eps lands within f32 rounding of EPSILON.
+    With an option, f is the f64 state (see pair_em_gather)."""
+    return _pair_em_ref(gn, sidx, maf, ignore_miss_data, iter_cap=iter_cap,
+                        f0=f0, want_eps=want_eps)
 
 
 def pair_em_rows_ref(gn: torch.Tensor, sidx: torch.Tensor,
@@ -288,23 +327,24 @@ def pick_gather_kernel(n_ind: int, itemsize: int,
     return "ichunk"
 
 
-def _empty(gn, sidx):
+def _empty(gn, sidx, f_dtype=None):
     P = sidx.shape[1]
-    return (torch.empty((P, 4), dtype=gn.dtype, device=gn.device),
+    return (torch.empty((P, 4), dtype=f_dtype or gn.dtype, device=gn.device),
             torch.empty(P, dtype=torch.int32, device=gn.device),
             torch.empty(P, dtype=torch.int32, device=gn.device))
 
 
 def _launch(lib_name, fn_stem, gn, sidx, maf, ignore_miss_data, pre=(),
-            post=()):
-    """Allocate the outputs and launch one of the kernels on P > 0 pairs
-    (all share the argument list; `pre` goes between I and ignore_miss,
-    `post` between ignore_miss and the outputs)."""
+            post=(), f_dtype=None):
+    """Allocate the outputs (f in f_dtype, default gn's) and launch one of
+    the kernels on P > 0 pairs (all share the argument list; `pre` goes
+    between I and ignore_miss, `post` between ignore_miss and the
+    outputs)."""
     from .build import get_library
     lib = get_library(lib_name)
     gn, sidx, maf = gn.contiguous(), sidx.contiguous(), maf.contiguous()
     P, I = sidx.shape[1], gn.shape[1]
-    f, n_iter, n_used = _empty(gn, sidx)
+    f, n_iter, n_used = _empty(gn, sidx, f_dtype)
     fn = getattr(lib, fn_stem + ("_f32" if gn.dtype == torch.float32
                                  else "_f64"))
     with torch.cuda.device(gn.device):
@@ -326,15 +366,30 @@ def _device_kind(gn, name):
 
 
 def pair_em_gather(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
-                   ignore_miss_data: bool):
+                   ignore_miss_data: bool, iter_cap: int = ITER_MAX,
+                   f0: torch.Tensor | None = None, want_eps: bool = False):
     """EM for P gathered pairs -> (f (P, 4), n_iter (P,) int32,
     n_used (P,) int32), in gn's dtype. Lane groups of gather_group lanes a
     pair, fed from a pair queue; raises ValueError for a cohort whose
-    block of slots exceeds the device's opt-in shared memory."""
-    global LAUNCHES
+    block of slots exceeds the device's opt-in shared memory.
+
+    Options (pallas_em._em_kernel's; the kernel's second instance, so the
+    launch without them keeps its code): iter_cap >= 1 stops the pairs
+    still running there (n_iter == iter_cap); f0 (P, 4) float64 starts f
+    there in place of the MAFs; want_eps appends eps (P, 2) float64, each
+    pair's [eps_last, eps_prev] (1 until the pair runs; an x = 0 pair
+    stops at n_iter 0 with NaN f and eps_last 0). With any of them f comes
+    back as (P, 4) float64 whatever gn's dtype: the EM's own state, so a
+    capped launch resumed from it (f0, iter_cap - cap) is the one-phase
+    launch bit for bit."""
+    global LAUNCHES, LAUNCHES_OPTS
     _check(gn, sidx, maf)
+    opts = _options(iter_cap, f0, want_eps)
+    if opts:
+        _check_options(gn, sidx, iter_cap, f0)
     if _device_kind(gn, "pair-EM") == "cpu":
-        return pair_em_gather_ref(gn, sidx, maf, ignore_miss_data)
+        return pair_em_gather_ref(gn, sidx, maf, ignore_miss_data, iter_cap,
+                                  f0, want_eps)
     I, esz = gn.shape[1], gn.element_size()
     group = gather_group(I, esz, gn.device)
     if group is None:
@@ -342,13 +397,30 @@ def pair_em_gather(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
             f"pair_em_gather: {I} individuals need {gather_smem(I, 32, esz)} "
             "bytes of shared memory a block, the device allows "
             f"{smem_limits(gn.device)[1]}; use pair_em_rows")
-    if sidx.shape[1] == 0:
-        return _empty(gn, sidx)
+    P = sidx.shape[1]
+    eps = (torch.empty((P, 2), dtype=torch.float64, device=gn.device)
+           if want_eps else None)
+    if P == 0:
+        out = _empty(gn, sidx, torch.float64 if opts else None)
+        return out + (eps,) if want_eps else out
     # the pair queue's head, zeroed for this launch on its stream
     head = torch.zeros(1, dtype=torch.int64, device=gn.device)
-    out = _launch("pair_em", "ngsld_pair_em", gn, sidx, maf,
-                  ignore_miss_data, pre=(group, gather_slot(I, group, esz)),
-                  post=(head.data_ptr(),))
+    pre = (group, gather_slot(I, group, esz))
+    if not opts:
+        out = _launch("pair_em", "ngsld_pair_em", gn, sidx, maf,
+                      ignore_miss_data, pre=pre, post=(head.data_ptr(),))
+    else:
+        f0 = f0.contiguous() if f0 is not None else None
+        out = _launch("pair_em", "ngsld_pair_em_opts", gn, sidx, maf,
+                      ignore_miss_data, pre=pre,
+                      post=(int(iter_cap),
+                            None if f0 is None else f0.data_ptr(),
+                            None if eps is None else eps.data_ptr(),
+                            head.data_ptr()),
+                      f_dtype=torch.float64)
+        if want_eps:
+            out = out + (eps,)
+        LAUNCHES_OPTS += 1
     LAUNCHES += 1
     return out
 
@@ -461,3 +533,59 @@ def _pair_em_ichunk_stream(gn, sidx, maf, ignore_miss_data,
 
 GATHER_KERNELS = {"gather": pair_em_gather, "rows": pair_em_rows,
                   "ichunk": pair_em_ichunk}
+
+
+# ------------------------------------------------------- phased driver
+
+def phase2_order(eps: torch.Tensor, eps_prev: torch.Tensor) -> torch.Tensor:
+    """The order in which phase 2 hands out capped pairs, from their last
+    two eps (f64, on any device): hardest first, by pallas_em.
+    pair_em_phased's estimate of the iterations left from the contraction
+    rate at the cap, eps_k ~ C rho^k => log(EPSILON / eps) / log(rho),
+    rho = eps / eps_prev (non-finite -> ITER_MAX). The reference sorts
+    easiest first so that equally hard pairs share a tile; a pair queue
+    has no tiles, and handing the longest pairs out first keeps them out
+    of the launch's tail."""
+    rho = (eps / eps_prev.clamp_min(1e-30)).clamp(1e-6, 0.9999)
+    pred = torch.log((EPSILON / eps.clamp_min(1e-30)).clamp_min(1e-30)) \
+        / torch.log(rho)
+    pred = torch.where(torch.isfinite(pred), pred, float(ITER_MAX))
+    return torch.argsort(pred, descending=True, stable=True)
+
+
+def pair_em_phased(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
+                   ignore_miss_data: bool, *, cap1: int = 16):
+    """Two-phase EM with exact resume (pallas_em.pair_em_phased): host
+    numpy (f (P, 4) in gn's dtype, n_iter (P,) int32, n_used (P,) int32),
+    bit-equal to pair_em_gather on the same inputs.
+
+    Phase 1 runs every pair capped at cap1 (pair_em_gather with iter_cap
+    and want_eps: f64 state and eps); one small pull of (n_iter, eps_last,
+    eps_prev) finds the pairs still running at the cap; phase 2 resumes
+    them warm from their f64 state, capped at ITER_MAX - cap1, on
+    sidx[:, order] (the pair queue reads rows by index, so nothing is
+    gathered), and n_iter = cap1 + phase 2's. The order is phase2_order's,
+    hardest first; the result does not depend on it (a pair's sums depend
+    on its own rows only). The reference's pair_tile and bucket have no
+    counterpart: the queue has no tiles, and nothing recompiles. Phase 1's
+    and phase 2's launches are pair_em_gather's (the lane groups) whatever
+    rung the ladder would pick."""
+    if not 1 <= cap1 < ITER_MAX:
+        raise ValueError(f"cap1 must lie in [1, {ITER_MAX}), got {cap1}")
+    f1, it1, n_used, eps = pair_em_gather(gn, sidx, maf, ignore_miss_data,
+                                          iter_cap=cap1, want_eps=True)
+    meta = torch.cat([it1.double()[:, None], eps], dim=1).cpu().numpy()
+    n_iter = meta[:, 0].astype(np.int32)
+    un = np.flatnonzero(n_iter == cap1)
+    if len(un):
+        order = un[phase2_order(torch.from_numpy(meta[un, 1]),
+                                torch.from_numpy(meta[un, 2])).numpy()]
+        idx = torch.from_numpy(order).to(gn.device)
+        f2, it2, _ = pair_em_gather(gn, sidx.index_select(1, idx), maf,
+                                    ignore_miss_data,
+                                    iter_cap=ITER_MAX - cap1,
+                                    f0=f1.index_select(0, idx))
+        f1 = f1.index_copy(0, idx, f2)
+        n_iter[order] = cap1 + it2.cpu().numpy()
+    return (f1.to(gn.dtype).cpu().numpy(), n_iter,
+            n_used.cpu().numpy())

@@ -15,9 +15,12 @@ strip_i_align(n_ind))). Both kernels share their block body
 a block seats the cells still running over all its lanes again. On CPU
 tensors strip_em runs the matching plain PyTorch version, strip_em_ref or
 strip_em_stream_ref. LAUNCHES and LAUNCHES_STREAM count the two kernels'
-launches, nothing else. NGSLD_STRIP_STREAM=1 forces the streamed kernel at
+launches, nothing else (LAUNCHES_EPS those of strip_em.cu that took the
+eps export). NGSLD_STRIP_STREAM=1 forces the streamed kernel at
 any cohort size and NGSLD_STRIP_IC sets its chunk (the reference package's
-test knobs).
+test knobs). strip_em(want_eps=True) also returns each cell's last two
+update magnitudes (pallas_strip._strip_kernel's want_eps), from the
+resident kernel only, as in the reference.
 
 Per cell (a, b): live iff lo[a] <= b < hi[a] and both sites ok. Live
 cells run the two-locus EM of ops/em.py to their own convergence; dead
@@ -40,6 +43,7 @@ from .build import smem_limits
 
 LAUNCHES = 0          # csrc/strip_em.cu
 LAUNCHES_STREAM = 0   # csrc/strip_em_stream.cu
+LAUNCHES_EPS = 0      # csrc/strip_em.cu, its eps-export instance
 
 # individuals per staged chunk of the streamed kernel
 IC_STREAM = 64
@@ -85,17 +89,19 @@ def _ic_stream() -> int:
     return int(os.environ.get("NGSLD_STRIP_IC", IC_STREAM))
 
 
-def strip_smem(n_ind: int, streamed: bool = False) -> int:
+def strip_smem(n_ind: int, streamed: bool = False,
+               want_eps: bool = False) -> int:
     """Bytes of shared memory a block of the resident kernel needs for a
     cohort of n_ind, or of the streamed kernel for a chunk of n_ind
     (csrc/strip_core.cuh::strip_smem_bytes): an individual's record of
     3 planes x (rows + 32) + 1 doubles (streamed: two buffers of a chunk
     and the next chunk's floats), and per cell four frequencies, n_used
-    and a list entry, plus two counts (streamed: and a mask) a warp."""
+    and a list entry (with the eps export, two floats more), plus two
+    counts (streamed: and a mask) a warp."""
     rows = _ROWS_STREAM if streamed else _ROWS
     rec = (3 * (rows + 32) + 1) * 8
     per_ind = 2 * rec + 3 * (rows + 32) * 4 if streamed else rec
-    return (per_ind * n_ind + rows * 32 * (32 + 4 + 2)
+    return (per_ind * n_ind + rows * 32 * (32 + 4 + 2 + (8 if want_eps else 0))
             + (3 if streamed else 2) * rows * 4)
 
 
@@ -121,11 +127,13 @@ def _is_miss(g0, g1, g2):
 
 
 def _ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
-               I, iter_cap, ignore_miss, ta_sz, tb_sz, i_chunk=None):
+               I, iter_cap, ignore_miss, ta_sz, tb_sz, i_chunk=None,
+               want_eps=False):
     """Plain EM for one batch of tiles, on (n, TA, chunk, TB) broadcasts:
     the whole cohort at once (i_chunk None), or chunk after chunk of
     i_chunk individuals with the sums carried across, as the streamed
-    kernel walks them."""
+    kernel walks them. want_eps: also each cell's last two update
+    magnitudes (1 until the cell runs, unchanged once it stops)."""
     dev = ga.device
     f64 = torch.float64
     n = ta.shape[0]
@@ -166,6 +174,8 @@ def _ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
               & (ok_b[bc] > 0)[:, None, :])[:, :, None, :]   # (n,TA,1,TB)
     n_iter = torch.full((n, ta_sz, 1, tb_sz), iter_cap, dtype=torch.int32,
                         device=dev)
+    eps_last = torch.ones_like(f[0])
+    eps_prev = torch.ones_like(eps_last)
     it = 0
     while it < iter_cap and bool(active.any()):
         S = [None] * 4
@@ -197,19 +207,27 @@ def _ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
         for k in range(4):
             d = (f_next[k] - f[k]).abs()
             eps = torch.where(d > eps, d, eps)
+        if want_eps:
+            eps_prev = torch.where(active, eps_last, eps_prev)
+            eps_last = torch.where(active, eps, eps_last)
         newly = active & (eps < EPSILON)
         n_iter = torch.where(newly, torch.full_like(n_iter, it), n_iter)
         active = active & ~newly
         f = f_next
         it += 1
     f_out = torch.stack([fk[:, :, 0, :] for fk in f], dim=1)
-    return (f_out.to(torch.float32), r2p, n_iter[:, :, 0, :], n_used)
+    out = (f_out.to(torch.float32), r2p, n_iter[:, :, 0, :], n_used)
+    if want_eps:
+        out += tuple(e[:, :, 0, :].to(torch.float32)
+                     for e in (eps_last, eps_prev))
+    return out
 
 
 def strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
                  *, n_ind: int, iter_cap: int = ITER_MAX,
                  ignore_miss: bool = False, ta_sz: int = TA,
-                 tb_sz: int = TB, i_chunk: int | None = None):
+                 tb_sz: int = TB, i_chunk: int | None = None,
+                 want_eps: bool = False):
     """Plain PyTorch version of strip_em's resident kernel: same arguments,
     same outputs. Tiles go through in bounded batches so a chunk of
     hundreds of tiles fits in memory."""
@@ -218,15 +236,25 @@ def strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
     nb = max(1, _REF_PLANE_BYTES // per_tile)
     outs = [_ref_batch(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b,
                        ta[i:i + nb], tb[i:i + nb], n_ind, iter_cap,
-                       ignore_miss, ta_sz, tb_sz, i_chunk)
+                       ignore_miss, ta_sz, tb_sz, i_chunk, want_eps)
             for i in range(0, n, nb)]
     if not outs:
-        dev = ga.device
-        return (torch.empty((0, 4, ta_sz, tb_sz), device=dev),
-                torch.empty((0, ta_sz, tb_sz), device=dev),
-                torch.empty((0, ta_sz, tb_sz), dtype=torch.int32, device=dev),
-                torch.empty((0, ta_sz, tb_sz), dtype=torch.int32, device=dev))
-    return tuple(torch.cat([o[k] for o in outs]) for k in range(4))
+        return _empty_out(0, ta_sz, tb_sz, ga.device, want_eps)
+    return tuple(torch.cat([o[k] for o in outs]) for k in range(len(outs[0])))
+
+
+def _empty_out(n, ta_sz, tb_sz, dev, want_eps):
+    """strip_em's outputs for n tiles, allocated: f, r2p, n_iter, n_used
+    [, epsl, epsp]."""
+    f32, i32 = torch.float32, torch.int32
+    out = (torch.empty((n, 4, ta_sz, tb_sz), dtype=f32, device=dev),
+           torch.empty((n, ta_sz, tb_sz), dtype=f32, device=dev),
+           torch.empty((n, ta_sz, tb_sz), dtype=i32, device=dev),
+           torch.empty((n, ta_sz, tb_sz), dtype=i32, device=dev))
+    if want_eps:
+        out += (torch.empty((n, ta_sz, tb_sz), dtype=f32, device=dev),
+                torch.empty((n, ta_sz, tb_sz), dtype=f32, device=dev))
+    return out
 
 
 def strip_em_stream_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b,
@@ -279,7 +307,7 @@ def _check(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
 
 def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
              n_ind: int, iter_cap: int = ITER_MAX, ignore_miss: bool = False,
-             ta_sz: int = TA, tb_sz: int = TB):
+             ta_sz: int = TA, tb_sz: int = TB, want_eps: bool = False):
     """Run one batch of tiles.
 
     ga (3, Sa, Ip), gb (3, Ip, Sb), ea (Sa, Ip), eb (Ip, Sb): f32 strip
@@ -289,14 +317,19 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
     coordinates; ta/tb (n,) int32 tile coordinates in ta_sz/tb_sz units.
     The caller guarantees every tile lies inside the tables
     ((ta+1)*ta_sz <= Sa, (tb+1)*tb_sz <= Sb). Returns f (n, 4, TA, TB)
-    f32, r2p (n, TA, TB) f32, n_iter and n_used (n, TA, TB) int32.
+    f32, r2p (n, TA, TB) f32, n_iter and n_used (n, TA, TB) int32; with
+    want_eps, then epsl and epsp (n, TA, TB) f32, each cell's last two
+    update magnitudes (1 until it runs, unchanged once it stops; dead
+    cells 1), from the resident kernel's instance with the export (f, r2p,
+    n_iter and n_used are those of the launch without it).
 
     Cohorts past the resident kernel's limit (strip_streamed) take the
     streamed kernel; their tables must be built with
-    strip_tables(..., i_align=strip_i_align(n_ind)), else ValueError. A
-    kernel whose block needs more shared memory than the device allows is
-    refused with a ValueError that names both numbers."""
-    global LAUNCHES, LAUNCHES_STREAM
+    strip_tables(..., i_align=strip_i_align(n_ind)), else ValueError. The
+    streamed kernel exports no eps: want_eps there is a ValueError, as in
+    the reference. A kernel whose block needs more shared memory than the
+    device allows is refused with a ValueError that names both numbers."""
+    global LAUNCHES, LAUNCHES_STREAM, LAUNCHES_EPS
     _check(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, n_ind,
            ta_sz, tb_sz)
     if ga.device.type not in ("cpu", "cuda"):
@@ -304,6 +337,10 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
     kw = dict(n_ind=n_ind, iter_cap=iter_cap, ignore_miss=ignore_miss,
               ta_sz=ta_sz, tb_sz=tb_sz)
     streamed = strip_streamed(n_ind, ga.device)
+    if streamed and want_eps:
+        raise ValueError(
+            f"want_eps: the streamed strip kernel ({n_ind} individuals) "
+            "exports no eps; only the resident kernel does")
     if streamed:
         ic = _ic_stream()
         if ic < 1 or ga.shape[2] % ic:   # tables built without the chunk
@@ -317,45 +354,46 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
                              f"{ta_sz}")
     # a block's shared memory against what the device allows (for CPU
     # tensors: what the card the routing assumes would allow)
-    need = strip_smem(ic if streamed else n_ind, streamed)
+    need = strip_smem(ic if streamed else n_ind, streamed, want_eps)
     limit = smem_limits(ga.device)[1]
     if need > limit:
         raise ValueError(
             (f"streamed strip kernel: chunk {ic}" if streamed else
-             f"resident strip kernel: {n_ind} individuals")
+             f"resident strip kernel: {n_ind} individuals"
+             + (" with the eps export" if want_eps else ""))
             + f" needs {need} bytes of shared memory, the device allows "
             f"{limit}")
     if ga.device.type == "cpu":
-        ref = strip_em_stream_ref if streamed else strip_em_ref
-        return ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb,
-                   **kw)
+        if streamed:
+            return strip_em_stream_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi,
+                                       ok_a, ok_b, ta, tb, **kw)
+        return strip_em_ref(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b,
+                            ta, tb, want_eps=want_eps, **kw)
     from .build import get_library
     lib = get_library("strip_em_stream" if streamed else "strip_em")
     built = (lib.ngsld_strip_em_stream_smem(ic) if streamed
-             else lib.ngsld_strip_em_smem(n_ind))
+             else lib.ngsld_strip_em_smem(n_ind, int(want_eps)))
     if built != need:
         raise RuntimeError(f"strip_smem says {need} bytes of shared memory, "
                            f"the built kernel {built}")
     tens = [t.contiguous() for t in (ga, gb, ea, eb, maf_a, maf_b, lo, hi,
                                      ok_a, ok_b, ta, tb)]
     n, dev = ta.shape[0], ga.device
-    f = torch.empty((n, 4, ta_sz, tb_sz), dtype=torch.float32, device=dev)
-    r2p = torch.empty((n, ta_sz, tb_sz), dtype=torch.float32, device=dev)
-    n_iter = torch.empty((n, ta_sz, tb_sz), dtype=torch.int32, device=dev)
-    n_used = torch.empty((n, ta_sz, tb_sz), dtype=torch.int32, device=dev)
+    out = _empty_out(n, ta_sz, tb_sz, dev, want_eps)
     if n == 0:
-        return f, r2p, n_iter, n_used
+        return out
     shape = (n, ga.shape[1], gb.shape[2], ga.shape[2], n_ind)
     tail = (ta_sz, tb_sz, iter_cap, int(bool(ignore_miss)),
-            ROUND_ITERS_STREAM if streamed else ROUND_ITERS, f.data_ptr(),
-            r2p.data_ptr(), n_iter.data_ptr(), n_used.data_ptr())
+            ROUND_ITERS_STREAM if streamed else ROUND_ITERS,
+            *(t.data_ptr() for t in out[:4]))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [t.data_ptr() for t in tens]
         if streamed:
             err = lib.ngsld_strip_em_stream(*ptrs, *shape, ic, *tail, stream)
         else:
-            err = lib.ngsld_strip_em(*ptrs, *shape, *tail, stream)
+            eps = [t.data_ptr() for t in out[4:]] or [None, None]
+            err = lib.ngsld_strip_em(*ptrs, *shape, *tail, *eps, stream)
     if err != 0:
         raise RuntimeError(
             f"{'strip_em_stream' if streamed else 'strip_em'} CUDA kernel "
@@ -364,7 +402,8 @@ def strip_em(ga, gb, ea, eb, maf_a, maf_b, lo, hi, ok_a, ok_b, ta, tb, *,
         LAUNCHES_STREAM += 1
     else:
         LAUNCHES += 1
-    return f, r2p, n_iter, n_used
+        LAUNCHES_EPS += int(want_eps)
+    return out
 
 
 def _imat(nit, nu, slim_im: bool, use_i16: bool, ignore_miss: bool):

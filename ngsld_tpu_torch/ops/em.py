@@ -83,17 +83,26 @@ def nan_ignoring_eps(f_next, f):
 
 def pair_em(gl1: torch.Tensor, gl2: torch.Tensor, maf1: torch.Tensor,
             maf2: torch.Tensor, ignore_miss_data: bool, live=None,
-            i_chunk: int | None = None):
+            i_chunk: int | None = None, *, iter_cap: int = ITER_MAX,
+            f0: torch.Tensor | None = None, want_eps: bool = False):
     """EM haplotype frequencies for P pairs.
 
     Returns (f (P,4), n_iter (P,) int32, n_used (P,) int32). live (P,)
     bool (optional): pairs outside it freeze at the f0 init with
-    n_iter == ITER_MAX. i_chunk: add the per-individual terms up in chunks
-    of that many individuals (the streamed kernels' order)."""
+    n_iter == iter_cap. i_chunk: add the per-individual terms up in chunks
+    of that many individuals (the streamed kernels' order). The options of
+    pallas_em._em_kernel: iter_cap stops the pairs still running there
+    (n_iter == iter_cap); f0 (P, 4) starts f there in place of the MAFs (a
+    capped run's f, to resume it); want_eps appends eps (P, 2) =
+    [eps_last, eps_prev], each pair's last two update magnitudes, 1 until
+    the pair runs and unchanged once it stops."""
     dt = gl1.dtype
     P = gl1.shape[0]
-    f = torch.stack([(1 - maf1) * (1 - maf2), (1 - maf1) * maf2,
-                     maf1 * (1 - maf2), maf1 * maf2], dim=1).to(dt)
+    if f0 is None:
+        f = torch.stack([(1 - maf1) * (1 - maf2), (1 - maf1) * maf2,
+                         maf1 * (1 - maf2), maf1 * maf2], dim=1).to(dt)
+    else:
+        f = f0.to(dt)
     if ignore_miss_data:
         include = ~(miss_mask(gl1) | miss_mask(gl2))
     else:
@@ -105,15 +114,22 @@ def pair_em(gl1: torch.Tensor, gl2: torch.Tensor, maf1: torch.Tensor,
 
     active = (torch.ones(P, dtype=torch.bool, device=gl1.device)
               if live is None else live.clone())
-    n_iter = torch.full((P,), ITER_MAX, dtype=torch.int32, device=gl1.device)
+    n_iter = torch.full((P,), iter_cap, dtype=torch.int32, device=gl1.device)
+    eps_last = torch.ones(P, dtype=dt, device=gl1.device)
+    eps_prev = torch.ones(P, dtype=dt, device=gl1.device)
     it = 0
-    while it < ITER_MAX and bool(active.any()):
+    while it < iter_cap and bool(active.any()):
         f_new = _em_update(f, gl1, gl2, incf, inv_x, i_chunk)
         f_next = torch.where(active[:, None], f_new, f)
         eps = nan_ignoring_eps(f_next, f)
+        if want_eps:
+            eps_prev = torch.where(active, eps_last, eps_prev)
+            eps_last = torch.where(active, eps, eps_last)
         newly = active & (eps < EPSILON)
         n_iter = torch.where(newly, torch.full_like(n_iter, it), n_iter)
         active = active & ~newly
         f = f_next
         it += 1
+    if want_eps:
+        return f, n_iter, n_used, torch.stack([eps_last, eps_prev], dim=1)
     return f, n_iter, n_used

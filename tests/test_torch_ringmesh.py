@@ -32,6 +32,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from ngsld_tpu_torch import strict as tstrict
 from ngsld_tpu_torch.kernels import strip_em as tstrip
 from ngsld_tpu_torch.parallel import mesh as tmesh
 from ngsld_tpu_torch.parallel import ring as tring
@@ -355,9 +356,13 @@ def _jax_steps(step, taker, c, si, n_steps, tabs):
     return out
 
 
-def _hold(port, j, n_blocks, ranks, f_tol, exact_it=True):
+def _hold(port, j, n_blocks, ranks, f_tol, exact_it=True, strict=None):
     """Each block's rows of each step: the live count equal, then n_used
-    (and nIter) exact and fm within f_tol, or the strip contract."""
+    (and nIter) exact and fm within f_tol, or the strip contract. Under
+    the strip contract, strict(t, k, rows) gives the port's strict f64 EM
+    (f, nIter) on the pairs of block k's rows `rows` at step t: the rows
+    whose nIter part from the reference's or sit at the cap are held
+    against it."""
     live = 0
     for t, (jfm, jim, jcnt) in enumerate(j):
         for k in range(n_blocks):
@@ -377,11 +382,19 @@ def _hold(port, j, n_blocks, ranks, f_tol, exact_it=True):
                 it = im[:, 0].astype(int)
                 assert (np.abs(it - ji[:, 0]) <= 1).mean() > 0.95
                 # a pair at the iteration cap never converged: its f32
-                # (reference) and f64 (port) trajectories part there
+                # (reference) and f64 (port) trajectories part there, so
+                # it is held against strict's f64 EM instead, at the cap
+                # there too (as is a pair whose nIter parts by one)
                 same = (it == ji[:, 0]) & (it < 100)
                 assert same.mean() > 0.95
                 _equal_nan(fm[same, 1:], jf[same, 1:], 3e-5)
                 _equal_nan(fm[:, 0], jf[:, 0], 2e-5)
+                rest = np.flatnonzero(~same)
+                sf, sit = strict(t, k, rest)
+                _equal_nan(fm[rest, 1:], sf, 3e-5)
+                at_cap = it[rest] == 100
+                assert (sit[at_cap] == 100).all()
+                assert (np.abs(sit - it[rest]) <= 1).all()
     return live
 
 
@@ -433,7 +446,27 @@ def test_strip_stepper_matches_jax(port_side, ign):
                                        jnp.int32(t), jnp.int32(0))
             j.append((np.asarray(fm), np.asarray(im), np.asarray(cnt)))
     port = [p["strip", ign] for p in port_side]
-    assert _hold(port, j, 4, range(4), None, exact_it=False) > 20000
+    B, n = c["cfg"]["B"], c["cfg"]["n"]
+    # the f32 tables' GLs and MAFs, widened: what the port's EM reads
+    gl = c["gn"].astype(np.float32).astype(np.float64)
+    maf = c["maf"].astype(np.float64)
+
+    def strict(t, k, rows):
+        # block k's step-t emission mask (parallel/ring.py::_tile_mask):
+        # its rows are the valid cells in row-major (a, pj) order
+        A = (k * B + np.arange(B))[:, None]
+        PJ = (((k + t) % 4) * B + np.arange(B))[None, :]
+        valid = (PJ > A) & (PJ < n) & (A < n) & (c["ok"][A] > 0) \
+            & (c["ok"][PJ] > 0) & (PJ < c["hi"][A])
+        a, pj = np.nonzero(valid)
+        assert len(a) == port[k][t][2]
+        s1, s2 = A[a[rows], 0], PJ[0, pj[rows]]
+        f, n_iter, _ = tstrict.pair_em_batch(gl[s1], gl[s2], maf[s1],
+                                             maf[s2], ign)
+        return f, n_iter
+
+    assert _hold(port, j, 4, range(4), None, exact_it=False,
+                 strict=strict) > 20000
 
 
 @pytest.mark.parametrize("si,sample,ign", IND_CASES)
