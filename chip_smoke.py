@@ -15,6 +15,8 @@
                                          # 5b, 6, 9
     python3 chip_smoke.py --kernels-only # the kernels and their options:
                                          # phases 1, 2, 3, 11
+    python3 chip_smoke.py --overlap-only # the overlap ingest: phases 1,
+                                         # 2, 12
 
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
@@ -188,7 +190,28 @@ Phases, each printing its result and seconds on its own line:
      times; 11c strip_em_twophase (cap1 30) against strip_em_compact on
      the cell's live cells: rows that stopped in phase A bit-equal,
      survivors within 5e-5 and nIter within 1 on more than 95%, both
-     walls and the survivors
+     walls and the survivors; 11d at phase 3b's large-cohort cells (2,048
+     random pairs of the tiled panel) pair_em_rows.cu at 4,000 (f32 and
+     f64 tables) and pair_em_ichunk.cu's cluster body and streamed body
+     (forced) at 20,000, each at cap 16 and at the default cap against
+     its plain version (nIter and n_used exact, capped pairs at the cap),
+     two launches bit-equal, the capped time beside its bound and the
+     default launch's; the capped instances' registers
+  12. the overlap ingest (GL upload and preprocess slab by slab under the
+     gather sweep), each leg run with it and with NGSLD_OVERLAP_UPLOAD=0,
+     rows to a file (a seekable output engages it): 12a the JAX package's
+     1M-site sampled leg (1,000,000 sites x 100 from a binary file, ten
+     copies of one 100,000-site simulation, --max_snp_dist 64
+     --rnd_sample 0.05), the counter in the first run only, the TSVs
+     byte-equal, the ladder's launches alone, a row sample against
+     strict, both walls and stage splits, the ingest wait and the time to
+     the first dispatch; 12b a dense 4,096 x 100 binary leg through the
+     strip sweep (its tables after join_all), byte-equal; 12c a NaN three
+     values before EOF in slabs of 100 sites: rc != 0, "NaN found", the
+     output file empty; 12d the preprocess slab by slab against the whole
+     table (slabs of 1 to 1,000 sites) at 100 and 20,000 individuals,
+     byte-equal, and phase 5b's sampled 2,048 x 20,000 file in slabs of
+     409 sites (the last of 3) with and without the overlap, byte-equal
 
 Then one JSON line of per-kernel results and, last, the `ok` line. Any
 failure exits non-zero without those lines; so does a machine without a
@@ -689,13 +712,13 @@ def _random_pairs(n_pairs, seed, n_sites=4_096):
                             .astype(np.int32)).to("cuda")
 
 
-def _gather_bound(gn, sidx, maf, n_iter):
+def _gather_bound(gn, sidx, maf, n_iter, cap=100):
     """Bytes once (table, index, MAFs in; three outputs out) and the f64
-    flops of the updates this data needs."""
+    flops of the updates this data needs under the iteration cap."""
     esz, P = gn.element_size(), sidx.shape[1]
     n_bytes = (gn.numel() + maf.numel()) * esz + sidx.numel() * 4 \
         + P * (4 * esz + 8)
-    need = _needed_evals(n_iter, gn.shape[1])
+    need = _needed_evals(n_iter, gn.shape[1], cap)
     return (*_bound(n_bytes, need * FLOPS_PER_EVAL), n_bytes, need)
 
 
@@ -1170,12 +1193,14 @@ def phase_strip_design(card):
 # --------------------------------------------------------------- phase 3d
 
 # (source, kernel, a part of its mangled name): the f32-table instances
-# built without --ignore_miss_data (and, for pair_em.cu, without the
-# options), the ones the timed cells run
+# built without --ignore_miss_data and without the options (pair_em.cu)
+# or the cap (the others), the ones the timed cells run
 GATHER_KERNELS_SASS = (("pair_em", "pair_em_kernel", "IfLb0ELb0E"),
-                       ("pair_em_rows", "pair_em_rows_kernel", "IfLb0E"),
-                       ("pair_em_ichunk", "pair_em_cluster_kernel", "IfLb0E"),
-                       ("pair_em_ichunk", "pair_em_ichunk_kernel", "IfLb0E"))
+                       ("pair_em_rows", "pair_em_rows_kernel", "IfLb0ELb0E"),
+                       ("pair_em_ichunk", "pair_em_cluster_kernel",
+                        "IfLb0ELb0E"),
+                       ("pair_em_ichunk", "pair_em_ichunk_kernel",
+                        "IfLb0ELb0E"))
 GROUPS = (4, 8, 16, 32)          # lane groups timed at the gather cell
 # pair_em_rows' widths, timed at (pairs, cohort, table itemsize)
 ROWS_WIDTHS = (64, 128, 256, 512)
@@ -1334,7 +1359,7 @@ def _rows_sweep(card, sass):
     import torch
     from ngsld_tpu_torch.kernels import pair_em as pmod
     dev = torch.device("cuda", 0)
-    regs = sass["pair_em_rows_kernelIfLb0E"]["regs"]
+    regs = sass["pair_em_rows_kernelIfLb0ELb0E"]["regs"]
     out = {}
     for n_pairs, n_ind, esz in ROWS_SWEEP:
         sidx = _random_pairs(n_pairs, 5 if n_pairs == BIG_P else 11)
@@ -3861,20 +3886,353 @@ def _strip_options(card, report):
     torch.cuda.synchronize()
 
 
-def phase_options(card, rep):
+# 11d: the capped instances of the rows and ichunk kernels, at their cap
+# (below the cell's mean nIter) and at the default; their SASS names
+CAP_ROWS_ICHUNK = 16
+CAP_KERNELS_SASS = (("pair_em_rows", "pair_em_rows_kernel", "IfLb0ELb1E"),
+                    ("pair_em_ichunk", "pair_em_cluster_kernel", "IfLb0ELb1E"),
+                    ("pair_em_ichunk", "pair_em_ichunk_kernel", "IfLb0ELb1E"))
+
+
+def _cap_options(card, big, report):
+    """11d: pair_em_rows.cu's and both pair_em_ichunk.cu bodies' capped
+    instances at phase 3b's large-cohort cells (2,048 random pairs of the
+    tiled panel): pair_em_rows at 4,000 individuals (f32 and f64 tables),
+    the cluster body and the streamed body (forced) at 20,000. Each at
+    CAP_ROWS_ICHUNK and at the default cap: against its plain version
+    (n_used and nIter exact, capped pairs at the cap, f to the table
+    dtype's rounding), two launches bit-equal, the time beside its bound
+    (bytes once and the updates the cap leaves) and phase 3b's default
+    launch. Then the capped instances' SASS beside the default ones'."""
+    import torch
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    dev = torch.device("cuda", 0)
+    cap = CAP_ROWS_ICHUNK
+    sidx = _random_pairs(BIG_P, 5)
+    for name, n_ind, dtype, kern_fn, plain_fn, key in (
+            ("pair_em_rows", ROWS_I, torch.float32, pmod.pair_em_rows,
+             pmod.pair_em_rows_ref, "rows"),
+            ("pair_em_rows", ROWS_I, torch.float64, pmod.pair_em_rows,
+             pmod.pair_em_rows_ref, None),
+            ("pair_em_ichunk cluster", BIG_I, torch.float32, _ichunk_cluster,
+             pmod.pair_em_ichunk_ref, "ichunk"),
+            ("pair_em_ichunk streamed", BIG_I, torch.float32,
+             _ichunk_streamed, pmod.pair_em_ichunk_ref, None)):
+        gn, _, maf = _tiled_panel(4_096, n_ind, 3, dev)
+        gn, maf = gn.to(dtype), maf.to(dtype)
+        tag = "f32" if dtype == torch.float32 else "f64"
+        tol = F32_TOL if dtype == torch.float32 else F64_TOL
+        times = {}
+        for c in (cap, 100):
+            label = f"11d {name} {tag} P={BIG_P} I={n_ind} iter_cap={c}"
+            ms, out = _time(lambda: kern_fn(gn, sidx, maf, False, iter_cap=c))
+            if not _same(out, kern_fn(gn, sidx, maf, False, iter_cap=c)):
+                raise AssertionError(f"{label}: two launches differ")
+            ms_p, plain = _time(lambda: plain_fn(gn, sidx, maf, False,
+                                                 iter_cap=c), 1, False)
+            err, _ = _check(out, plain, tol, label, quiet=True)
+            it = out[1].cpu().numpy()
+            n_cap = int((it == c).sum())
+            if it.max() > c or (c == cap and n_cap == 0):
+                raise AssertionError(f"{label}: nIter max {it.max()}, "
+                                     f"{n_cap} pairs at the cap")
+            b_ms, b_by, _, need = _gather_bound(gn, sidx, maf, out[1], c)
+            times[c] = ms
+            print(f"  {label}: {ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
+                  f"({need} needed evals), plain version {ms_p:.3f} ms; "
+                  f"max|df| {err:.3e} (tol {tol:g}), nIter and n_used "
+                  f"exact, {n_cap} of {BIG_P} pairs at the cap; two "
+                  f"launches bit-equal [{card}]")
+            if c == cap:
+                report[f"{name} {tag}"] = dict(
+                    ms=ms, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err)
+        p3 = ("not run" if big is None else
+              f"{big[key]['ms']:.3f} ms" if key else
+              f"{big['ichunk']['before_ms']:.3f} ms"
+              if name.endswith("streamed") else "not timed")
+        print(f"  11d {name} {tag}: capped {times[cap]:.3f} ms, default "
+              f"launch {times[100]:.3f} ms here, phase 3b's {p3} "
+              f"[{card}]")
+        report[f"{name} {tag}"]["ms_default"] = times[100]
+        del gn, maf, out, plain
+    del sidx
+    torch.cuda.synchronize()
+    sass = _sass_lines(CAP_KERNELS_SASS)
+    print("  11d capped instances' registers: "
+          + json.dumps({k: v["regs"] for k, v in sass.items()}))
+
+
+def phase_options(card, rep, big=None):
     """Phase 11: the kernel options (pair_em.cu's cap, warm start and eps;
-    strip_em.cu's eps) and their drivers. Returns the measurements and
-    each wrapper's option-instance launches in the phase."""
+    strip_em.cu's eps; the rows and ichunk kernels' cap) and the two-phase
+    runs built on them. Returns the measurements and each wrapper's
+    option-instance launches in the phase."""
     from ngsld_tpu_torch.kernels import pair_em as pmod
     from ngsld_tpu_torch.kernels import strip_em as smod
     pmod.LAUNCHES_OPTS = smod.LAUNCHES_EPS = 0
+    pmod.LAUNCHES_ROWS_CAP = pmod.LAUNCHES_ICHUNK_CAP = 0
     report = {}
     _gather_options(card, rep, report)
     _strip_options(card, report)
+    _cap_options(card, big, report)
     report["launches"] = dict(pair_em=pmod.LAUNCHES_OPTS,
-                              strip_em=smod.LAUNCHES_EPS)
+                              strip_em=smod.LAUNCHES_EPS,
+                              pair_em_rows=pmod.LAUNCHES_ROWS_CAP,
+                              pair_em_ichunk=pmod.LAUNCHES_ICHUNK_CAP)
     print(f"  option-instance launches in phase 11: "
           + json.dumps(report["launches"]))
+    return report
+
+
+# ---------------------------------------------------------------- phase 12
+
+# 12a: the JAX package's own end-to-end perf leg, 1M sites x 100
+# individuals sampled (its 1M-SNP configuration), as OVL_TILES copies
+# along the sites of one OVL_TILE-site simulation, the contigs renumbered
+# so that the positions go on
+OVL_I, OVL_TILE, OVL_TILES = 100, 100_000, 10
+OVL_ARGS = ["--max_kb_dist", "0", "--max_snp_dist", "64", "--rnd_sample",
+            "0.05", "--seed", "12345", "--extend_out"]
+# 12b: a dense binary leg that the auto rule gives to the strip sweep
+OVL_DENSE_S, OVL_DENSE_BAND = 4_096, 256
+# 12c: slabs of 100 sites of the 12b file, a NaN three values before EOF
+OVL_NAN_SLAB = 100 * OVL_I * 24
+# 12d: slab sizes (cycled over the table) on both sides of the shapes at
+# which a reduction kernel changes its launch; the 20,000-individual CLI
+# leg in slabs of 409 sites, the last of 3
+OVL_SLABS = (1, 7, 15, 16, 17, 100, 1000)
+OVL_BIG_SLAB_SITES = 409
+
+
+def _tiled_sites(sim, copies):
+    """(chrom, pos) of sim's sites `copies` times over, each copy's
+    contigs numbered after the last copy's."""
+    n_contig = int(sim.chrom[-1].split("_")[1])
+    num = np.array([int(c.split("_")[1]) for c in sim.chrom])
+    chrom = [f"chrSIM_{k}" for t in range(copies)
+             for k in (num + t * n_contig).tolist()]
+    return chrom, np.tile(sim.pos, copies)
+
+
+def _file_sink(path, n_pairs):
+    """A _CountingStdout fed the TSV at `path` (its kept rows for a sample
+    against strict, its line count) and the file's sha256."""
+    sink = _CountingStdout(keep_every=max(1, n_pairs // 1000))
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 24), b""):
+            sink.write(chunk)
+            h.update(chunk)
+    if sink.n_lines != 1 + n_pairs or sink._tail:
+        raise AssertionError(f"{path}: {sink.n_lines} lines, expected 1 + "
+                             f"{n_pairs}")
+    return sink, h.hexdigest()
+
+
+def _with_and_without(argv, path, n_pairs, want, label, card):
+    """The run with the overlap ingest (NGSLD_OVERLAP_UPLOAD unset) and
+    without it ("0"), rows to a file: the counter in the first only, the
+    launches `want` (or want(timings)) in both, the TSVs byte-equal.
+    Returns {mode: (wall, timings, sink, sha256, stderr)} and prints both
+    walls and stage splits."""
+    runs = {}
+    for mode, knob in (("overlap", None), ("without", "0")):
+        with _env(NGSLD_OVERLAP_UPLOAD=knob):
+            wall, launches, tim, err, _ = _file_run(argv, path)
+        sink, sha = _file_sink(path, n_pairs)
+        os.remove(path)
+        on = tim["counters"].get("overlap_ingest") == 1
+        if on != (mode == "overlap") or \
+                ("  gl stream+upload" in tim["phases"]) == on:
+            raise AssertionError(f"{label} {mode}: overlap counter "
+                                 f"{tim['counters'].get('overlap_ingest')}, "
+                                 f"phases {tim['phases']}")
+        expect = want(tim) if callable(want) else want
+        if launches != expect:
+            raise AssertionError(f"{label} {mode}: launches {launches}, "
+                                 f"expected {expect}")
+        runs[mode] = (wall, tim, sink, sha, err)
+        st = tim["stages"]
+        print(f"  {label}, {'with' if on else 'without'} the overlap: "
+              f"wall {wall:.3f} s, "
+              f"{n_pairs / wall:.4e} pairs/s; ingest wait "
+              f"{st.get('sweep: ingest wait', 0):.3f} s, start to first "
+              f"dispatch {st.get('sweep: to first dispatch', 0):.3f} s, "
+              f"slabs {tim['counters'].get('ingest_slabs', '-')} [{card}]")
+        print("    phases: " + json.dumps(tim["phases"]))
+        print("    stages: " + json.dumps(st))
+    if runs["overlap"][3] != runs["without"][3]:
+        raise AssertionError(f"{label}: the TSVs differ (sha256 "
+                             f"{runs['overlap'][3]} / {runs['without'][3]})")
+    return runs
+
+
+def _slabwise_preprocess(card, dev):
+    """12d: ops.preprocess on a whole table against the same table in
+    slabs of OVL_SLABS sites (cycled), raw log-scale records as the binary
+    loader hands them over: every output byte-equal. Beside it, how many
+    sites' plain torch.sum over the individuals would have changed bits
+    with the slab's shape (what site_sum's fixed order removes)."""
+    import torch
+    from ngsld_tpu_torch.ops.preprocess import preprocess
+    kw = dict(call=False, N_thresh=0.0, call_thresh=0.0,
+              ignore_miss_data=False, raw=True, in_log=True)
+    for n_ind, n_sites, dtype in ((OVL_I, 20_000, torch.float32),
+                                  (OVL_I, 20_000, torch.float64),
+                                  (BIG_I, BIG_S, torch.float32)):
+        gn, _, _ = _tiled_panel(n_sites, n_ind, 7, dev)
+        raw = torch.log(gn.to(dtype)).clamp_min(-1e15)
+        del gn
+        whole = preprocess(raw, **kw)
+        cuts, a, k = [], 0, 0
+        while a < n_sites:
+            b = min(n_sites, a + OVL_SLABS[k % len(OVL_SLABS)])
+            cuts.append((a, b))
+            a, k = b, k + 1
+        parts = [preprocess(raw[a:b], **kw) for a, b in cuts]
+        for j, name in enumerate(("gn", "maf", "eg")):
+            if not torch.equal(torch.cat([p[j] for p in parts]), whole[j]):
+                raise AssertionError(f"12d I={n_ind} {dtype}: {name} slab "
+                                     "by slab differs from the whole table")
+        eg = whole[2]
+        plain = torch.cat([eg[a:b].sum(dim=1) for a, b in cuts])
+        n_diff = int((plain != eg.sum(dim=1)).sum())
+        print(f"  12d preprocess {n_sites} x {n_ind} {str(dtype)[6:]}: "
+              f"{len(cuts)} slabs of {OVL_SLABS} sites byte-equal to the "
+              f"whole table (gn, maf, eg); torch.sum over the individuals "
+              f"slab by slab would differ on {n_diff} of {n_sites} sites "
+              f"[{card}]")
+        del raw, whole, parts, eg, plain
+    torch.cuda.synchronize()
+
+
+def phase_overlap(tmp, card, large=None):
+    """Phase 12: the overlap ingest on the card (12a the 1M-site sampled
+    leg, 12b a dense leg through the strip sweep, 12c a NaN near the end,
+    12d 20,000 individuals)."""
+    import types
+
+    import torch
+    from ngsld_tpu_torch.utils.simulate import (simulate, write_glf_bin,
+                                                write_pos)
+    d = os.path.join(tmp, "overlap")
+    os.makedirs(d, exist_ok=True)
+    report = {}
+    # ---- 12a: the 1M-site sampled leg, binary input
+    t0 = time.perf_counter()
+    sim = simulate(n_ind=OVL_I, n_sites=OVL_TILE, seed=17, contig_kb=500.0)
+    n_sites = OVL_TILE * OVL_TILES
+    chrom, pos = _tiled_sites(sim, OVL_TILES)
+    glf, posf = os.path.join(d, "m1.glf"), os.path.join(d, "m1.pos")
+    with np.errstate(divide="ignore"):
+        lg = np.log(sim.gl)
+    lg[np.isneginf(lg)] = -1e15
+    lg = lg.astype(np.float64)
+    with open(glf, "wb") as fh:
+        for _ in range(OVL_TILES):
+            lg.tofile(fh)
+    with open(posf, "w") as fh:
+        fh.write("".join(f"{c}\t{p}\n" for c, p in zip(chrom, pos.tolist())))
+    del lg, sim
+    print(f"  12a fixture: {n_sites} sites x {OVL_I} ({os.path.getsize(glf)} "
+          f"bytes of doubles) in {time.perf_counter() - t0:.3f} s")
+    argv = ["--geno", glf, "--log_scale", "--n_ind", str(OVL_I), "--n_sites",
+            str(n_sites), "--pos", posf, *OVL_ARGS, "--verbose", "2"]
+    pars, sizes = _plan_blocks(argv, posf, n_sites)
+    n_pairs = sum(sizes)
+    want = _ladder_launches(OVL_I, 4, sizes)
+    label = f"12a {n_sites} x {OVL_I} sampled"
+    runs = _with_and_without(argv, os.path.join(d, "m1.ld"), n_pairs, want,
+                             label, card)
+    n_rows = _sample_vs_strict(runs["overlap"][2], types.SimpleNamespace(
+        chrom=chrom, pos=pos), pars)
+    w_on, w_off = runs["overlap"][0], runs["without"][0]
+    up = runs["without"][1]["phases"]["  gl stream+upload"]
+    pre = runs["without"][1]["phases"]["  preprocess"]
+    print(f"  {label}: {n_pairs} rows in {len(sizes)} blocks, launches "
+          f"{json.dumps({k: v for k, v in want.items() if v})} (the ladder's, "
+          f"no other kernel) in both runs, TSVs byte-equal (sha256 "
+          f"{runs['overlap'][3][:16]}), {n_rows} sampled rows within the "
+          f"f32 contract of strict; wall {w_on:.3f} s with the overlap, "
+          f"{w_off:.3f} s without (gl stream+upload {up:.3f} s, preprocess "
+          f"{pre:.3f} s there): the overlap hid {(w_off - w_on) / up:.4f} of "
+          f"the upload's seconds [{card}]")
+    report["12a"] = dict(wall_on=w_on, wall_off=w_off, upload=up,
+                         pairs=n_pairs)
+    os.remove(glf)
+    # ---- 12b: a dense leg through the strip sweep under the overlap
+    sim_b = simulate(n_ind=OVL_I, n_sites=OVL_DENSE_S, seed=5,
+                     contig_kb=500.0)
+    glf_b, pos_b = os.path.join(d, "dense.glf"), os.path.join(d, "dense.pos")
+    write_glf_bin(sim_b, glf_b)
+    write_pos(sim_b, pos_b)
+    argv_b = ["--geno", glf_b, "--log_scale", "--n_ind", str(OVL_I),
+              "--n_sites", str(OVL_DENSE_S), "--pos", pos_b, "--max_kb_dist",
+              "0", "--max_snp_dist", str(OVL_DENSE_BAND), "--extend_out",
+              "--verbose", "2"]
+    _, n_pairs_b, _ = _plan(argv_b, pos_b, OVL_DENSE_S)
+    runs = _with_and_without(
+        argv_b, os.path.join(d, "dense.ld"), n_pairs_b,
+        lambda tim: dict(_NO_LAUNCHES,
+                         strip_em=tim["counters"]["blocks_computed"]),
+        f"12b {OVL_DENSE_S} x {OVL_I} dense", card)
+    tim_on, err_on = runs["overlap"][1], runs["overlap"][4]
+    chunks = tim_on["counters"]["blocks_computed"]
+    if "==> strip sweep:" not in err_on or \
+            "  gl ingest join (strip tables)" not in tim_on["phases"]:
+        raise AssertionError("12b: not the strip sweep through join_all:\n"
+                             + err_on[-3000:])
+    print(f"  12b: {n_pairs_b} rows, {chunks} strip_em launches = chunks in "
+          f"both runs, the strip tables after join_all ("
+          f"{tim_on['phases']['  gl ingest join (strip tables)']:.3f} s), "
+          f"TSVs byte-equal [{card}]")
+    # ---- 12c: a NaN three values before EOF, many slabs, --out FILE
+    raw = np.fromfile(glf_b, np.float64)
+    raw[len(raw) - 3] = np.nan
+    glf_c = os.path.join(d, "nan.glf")
+    raw.tofile(glf_c)
+    del raw
+    out_c = os.path.join(d, "nan.ld")
+    argv_c = ["--geno", glf_c, "--log_scale", "--n_ind", str(OVL_I),
+              "--n_sites", str(OVL_DENSE_S), "--pos", pos_b, "--max_kb_dist",
+              "0", "--max_snp_dist", "64", "--chunk_pairs", "16384",
+              "--verbose", "0", "--out", out_c]
+    with _env(NGSLD_SLAB_BYTES=str(OVL_NAN_SLAB), NGSLD_OVERLAP_UPLOAD=None):
+        rc, err = _cli(argv_c)
+    if rc == 0 or "NaN found" not in err or os.path.getsize(out_c) != 0:
+        raise AssertionError(f"12c: rc {rc}, {os.path.getsize(out_c)} bytes "
+                             f"out\n{err[-2000:]}")
+    print(f"  12c: rc {rc}, 'NaN found' in stderr, the output file at 0 "
+          f"bytes ({-(-OVL_DENSE_S // 100)} slabs of 100 sites)")
+    for f in (glf_b, glf_c):
+        os.remove(f)
+    # ---- 12d: 20,000 individuals
+    _slabwise_preprocess(card, torch.device("cuda", 0))
+    big_glf = os.path.join(tmp, "large", f"tiled_{BIG_S}_{BIG_I}.glf")
+    big_pos = os.path.join(tmp, "large", f"sim_{BIG_S}.pos")
+    if large is None or not os.path.exists(big_glf):
+        big_glf = os.path.join(d, "big.glf")
+        big_pos = os.path.join(d, "big.pos")
+        sim_p = simulate(n_ind=PANEL_I, n_sites=BIG_S, seed=19,
+                         contig_kb=500.0)
+        _write_tiled_glf(sim_p, BIG_I, big_glf)
+        write_pos(sim_p, big_pos)
+    argv_d = ["--geno", big_glf, "--log_scale", "--n_ind", str(BIG_I),
+              "--n_sites", str(BIG_S), "--pos", big_pos, "--max_kb_dist", "0",
+              "--max_snp_dist", "128", "--extend_out", "--rnd_sample", "0.1",
+              "--seed", "12345", "--verbose", "2"]
+    _, sizes_d = _plan_blocks(argv_d, big_pos, BIG_S)
+    with _env(NGSLD_SLAB_BYTES=str(OVL_BIG_SLAB_SITES * BIG_I * 24)):
+        runs = _with_and_without(argv_d, os.path.join(d, "big.ld"),
+                                 sum(sizes_d),
+                                 _ladder_launches(BIG_I, 4, sizes_d),
+                                 f"12d {BIG_S} x {BIG_I} sampled", card)
+    slabs = runs["overlap"][1]["counters"]["ingest_slabs"]
+    if slabs != -(-BIG_S // OVL_BIG_SLAB_SITES):
+        raise AssertionError(f"12d: {slabs} slabs")
+    print(f"  12d: {sum(sizes_d)} rows, {slabs} slabs (the last of "
+          f"{BIG_S % OVL_BIG_SLAB_SITES} sites), TSVs byte-equal [{card}]")
     return report
 
 
@@ -3913,6 +4271,17 @@ def main(argv=()) -> int:
         _phase(results, "3d gather kernels' design",
                lambda: phase_gather_design(card))
         print("chip_smoke --gather-only: "
+              + ("PASS" if all(results) else "FAILED"))
+        return 0 if all(results) else 1
+    if "--overlap-only" in argv:
+        # the overlap ingest alone: build, phase 12; prints neither the
+        # kernels line nor the ok line
+        with tempfile.TemporaryDirectory(prefix="ngsld_chip_smoke_") as tmp:
+            card = _phase(results, "1 environment", phase_env)
+            _phase(results, "2 build", phase_build)
+            _phase(results, "12 overlap ingest on the card",
+                   lambda: phase_overlap(tmp, card))
+        print("chip_smoke --overlap-only: "
               + ("PASS" if all(results) else "FAILED"))
         return 0 if all(results) else 1
     if "--kernels-only" in argv:
@@ -3988,7 +4357,9 @@ def main(argv=()) -> int:
             mesh_ring = _phase(results, "10 the ring on two ranks",
                                lambda: phase_ring_mesh(tmp, card, ring))
         opts = _phase(results, "11 the kernel options",
-                      lambda: phase_options(card, rep))
+                      lambda: phase_options(card, rep, big))
+        _phase(results, "12 overlap ingest on the card",
+               lambda: phase_overlap(tmp, card, large))
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
@@ -4010,8 +4381,8 @@ def main(argv=()) -> int:
          large["sampled"], big["ichunk"])]
     # ring_mesh_launches: its launches a rank (rank 0, rank 1) over phase
     # 10's runs on two ranks; options_launches: the launches of its option
-    # instance (pair_em.cu's cap, warm start and eps; strip_em.cu's eps)
-    # in phase 11
+    # instance (pair_em.cu's cap, warm start and eps; strip_em.cu's eps;
+    # the rows and ichunk kernels' cap) in phase 11
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ngsld_tpu_torch/csrc/{src}",

@@ -57,6 +57,14 @@
 // the stop decision is thread 0's, broadcast by __syncthreads_or. A block
 // that stops waits for its last prefetch before it leaves. The chunk size
 // is a launch argument.
+//
+// The cap (ngsld_pair_em_cluster_cap_* and ngsld_pair_em_ichunk_cap_*; the
+// TPU kernel's iter_cap): a second instantiation of each body (kCap) stops
+// the pairs still running at iter_cap with n_iter == iter_cap. Every block
+// of a cluster computes the same eps from the same sums, and the cap is the
+// same for all, so they leave the loop at the same iteration and reach the
+// same cluster barriers. The entry points without the cap keep ITER_MAX as
+// a constant, and their code.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -91,14 +99,15 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int n, bool vec16,
   }
 }
 
-template <typename T, bool kIgnoreMiss>
+template <typename T, bool kIgnoreMiss, bool kCap>
 __global__ void __launch_bounds__(kMaxThreads)
 pair_em_ichunk_kernel(const T* __restrict__ gn,
                       const int32_t* __restrict__ sidx,
                       const T* __restrict__ maf, int64_t P, int I, int IC,
                       int vec16, T* __restrict__ f_out,
                       int32_t* __restrict__ n_iter_out,
-                      int32_t* __restrict__ n_used_out) {
+                      int32_t* __restrict__ n_used_out, int iter_cap) {
+  const int cap = kCap ? iter_cap : kIterMax;
   // two buffers x two sites x (IC, 3)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* __restrict__ bufs = reinterpret_cast<T*>(smem_raw);
@@ -143,9 +152,9 @@ pair_em_ichunk_kernel(const T* __restrict__ gn,
   double f0 = (1.0 - m1) * (1.0 - m2), f1 = (1.0 - m1) * m2;
   double f2 = m1 * (1.0 - m2), f3 = m1 * m2;
 
-  int n_iter = kIterMax;
+  int n_iter = cap;
   int b = 0;   // the buffer that holds (or is receiving) the current chunk
-  for (int it = 0; it < kIterMax; ++it) {
+  for (int it = 0; it < cap; ++it) {
     double a0 = 0, a1 = 0, a2 = 0, a3 = 0;
     for (int c = 0; c < n_chunks; ++c) {
       __pipeline_wait_prior(0);
@@ -153,7 +162,7 @@ pair_em_ichunk_kernel(const T* __restrict__ gn,
       // with the other buffer
       __syncthreads();
       const int cn = c + 1 < n_chunks ? c + 1 : 0;
-      if (cn != 0 || it + 1 < kIterMax) prefetch(cn, b ^ 1);
+      if (cn != 0 || it + 1 < cap) prefetch(cn, b ^ 1);
       const T* __restrict__ r1 = bufs + (int64_t)b * 2 * 3 * IC;
       const T* __restrict__ r2 = r1 + 3 * IC;
       const int n_i = min(IC, I - c * IC);
@@ -206,14 +215,15 @@ pair_em_ichunk_kernel(const T* __restrict__ gn,
 constexpr int kClusterThreads = 512;   // at most, a block of the cluster body
 constexpr int kClusterWarps = kClusterThreads / 32;
 
-template <typename T, bool kIgnoreMiss>
+template <typename T, bool kIgnoreMiss, bool kCap>
 __global__ void __launch_bounds__(kClusterThreads)
 pair_em_cluster_kernel(const T* __restrict__ gn,
                        const int32_t* __restrict__ sidx,
                        const T* __restrict__ maf, int64_t P, int I, int slice,
                        int vec16, T* __restrict__ f_out,
                        int32_t* __restrict__ n_iter_out,
-                       int32_t* __restrict__ n_used_out) {
+                       int32_t* __restrict__ n_used_out, int iter_cap) {
+  const int cap = kCap ? iter_cap : kIterMax;
   // this block's slice of both rows: (slice, 3) of site 1, then of site 2
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* __restrict__ r1 = reinterpret_cast<T*>(smem_raw);
@@ -267,8 +277,8 @@ pair_em_cluster_kernel(const T* __restrict__ gn,
   double f0 = (1.0 - m1) * (1.0 - m2), f1 = (1.0 - m1) * m2;
   double f2 = m1 * (1.0 - m2), f3 = m1 * m2;
 
-  int n_iter = kIterMax;
-  for (int it = 0; it < kIterMax; ++it) {
+  int n_iter = cap;
+  for (int it = 0; it < cap; ++it) {
     double a0 = 0, a1 = 0, a2 = 0, a3 = 0;
     for (int i = tid; i < n; i += nthr) {
       const double x0 = r1[3 * i], x1 = r1[3 * i + 1], x2 = r1[3 * i + 2];
@@ -333,11 +343,11 @@ pair_em_cluster_kernel(const T* __restrict__ gn,
 // The launch of the cluster body: P clusters of C blocks, each with `slice`
 // individuals of both rows in its dynamic shared memory. With occupancy
 // set, only asks the card how many such clusters it holds at once.
-template <typename T, bool kIgnoreMiss>
+template <typename T, bool kIgnoreMiss, bool kCap>
 int cluster_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
                 int C, int threads, T* fo, int32_t* it, int32_t* nu,
-                cudaStream_t st, int* occupancy) {
-  auto kern = pair_em_cluster_kernel<T, kIgnoreMiss>;
+                int iter_cap, cudaStream_t st, int* occupancy) {
+  auto kern = pair_em_cluster_kernel<T, kIgnoreMiss, kCap>;
   constexpr int kPer = 16 / sizeof(T);
   // slices on whole 16-byte runs of the row
   const int slice = ((I + C - 1) / C + kPer - 1) / kPer * kPer;
@@ -363,16 +373,17 @@ int cluster_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
   const int vec16 = (3 * (int64_t)I) % kPer == 0 &&
                     reinterpret_cast<uintptr_t>(g) % 16 == 0;
   err = cudaLaunchKernelEx(&cfg, kern, g, ix, m, P, I, slice, vec16, fo, it,
-                           nu);
+                           nu, iter_cap);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// iter_cap < 0: the instance without the cap (ITER_MAX, a constant)
 template <typename T>
 int cluster_launch(const void* gn, const void* sidx, const void* maf,
                    int64_t P, int I, int C, int threads, int ignore_miss,
-                   void* f, void* n_iter, void* n_used, void* stream,
-                   int* occupancy) {
+                   int iter_cap, void* f, void* n_iter, void* n_used,
+                   void* stream, int* occupancy) {
   if (P <= 0 && !occupancy) return 0;
   if (P > 0x7fffffff / 8 || I <= 0 || C < 1 || C > 8 || threads < 32 ||
       threads > kClusterThreads || threads % 32)
@@ -385,19 +396,26 @@ int cluster_launch(const void* gn, const void* sidx, const void* maf,
   int32_t* nu = static_cast<int32_t*>(n_used);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P <= 0) P = 1;   // an occupancy question only
+  if (iter_cap > 0)
+    return ignore_miss
+               ? cluster_one<T, true, true>(g, ix, m, P, I, C, threads, fo, it,
+                                            nu, iter_cap, st, occupancy)
+               : cluster_one<T, false, true>(g, ix, m, P, I, C, threads, fo,
+                                             it, nu, iter_cap, st, occupancy);
   return ignore_miss
-             ? cluster_one<T, true>(g, ix, m, P, I, C, threads, fo, it, nu,
-                                    st, occupancy)
-             : cluster_one<T, false>(g, ix, m, P, I, C, threads, fo, it, nu,
-                                     st, occupancy);
+             ? cluster_one<T, true, false>(g, ix, m, P, I, C, threads, fo, it,
+                                           nu, kIterMax, st, occupancy)
+             : cluster_one<T, false, false>(g, ix, m, P, I, C, threads, fo, it,
+                                            nu, kIterMax, st, occupancy);
 }
 
-template <typename T, bool kIgnoreMiss>
+template <typename T, bool kIgnoreMiss, bool kCap>
 int launch_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
-               int IC, T* fo, int32_t* it, int32_t* nu, cudaStream_t st) {
+               int IC, T* fo, int32_t* it, int32_t* nu, int iter_cap,
+               cudaStream_t st) {
   const size_t smem = 2 * 2 * 3 * (size_t)IC * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      pair_em_ichunk_kernel<T, kIgnoreMiss>,
+      pair_em_ichunk_kernel<T, kIgnoreMiss, kCap>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // 16-byte copies need every row, every chunk and the table itself on
@@ -407,15 +425,17 @@ int launch_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
                     reinterpret_cast<uintptr_t>(g) % 16 == 0;
   int threads = 64;
   while (threads < kMaxThreads && threads * 4 < IC) threads <<= 1;
-  pair_em_ichunk_kernel<T, kIgnoreMiss><<<(unsigned)P, threads, smem, st>>>(
-      g, ix, m, P, I, IC, vec16, fo, it, nu);
+  pair_em_ichunk_kernel<T, kIgnoreMiss, kCap>
+      <<<(unsigned)P, threads, smem, st>>>(g, ix, m, P, I, IC, vec16, fo, it,
+                                           nu, iter_cap);
   return (int)cudaGetLastError();
 }
 
+// iter_cap < 0: the instance without the cap (ITER_MAX, a constant)
 template <typename T>
 int launch(const void* gn, const void* sidx, const void* maf, int64_t P,
-           int I, int IC, int ignore_miss, void* f, void* n_iter,
-           void* n_used, void* stream) {
+           int I, int IC, int ignore_miss, int iter_cap, void* f,
+           void* n_iter, void* n_used, void* stream) {
   if (P <= 0) return 0;
   if (P > 0x7fffffff || I <= 0 || IC <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -425,9 +445,15 @@ int launch(const void* gn, const void* sidx, const void* maf, int64_t P,
   T* fo = static_cast<T*>(f);
   int32_t* it = static_cast<int32_t*>(n_iter);
   int32_t* nu = static_cast<int32_t*>(n_used);
-  return ignore_miss
-             ? launch_one<T, true>(g, ix, m, P, I, IC, fo, it, nu, st)
-             : launch_one<T, false>(g, ix, m, P, I, IC, fo, it, nu, st);
+  if (iter_cap > 0)
+    return ignore_miss ? launch_one<T, true, true>(g, ix, m, P, I, IC, fo, it,
+                                                   nu, iter_cap, st)
+                       : launch_one<T, false, true>(g, ix, m, P, I, IC, fo, it,
+                                                    nu, iter_cap, st);
+  return ignore_miss ? launch_one<T, true, false>(g, ix, m, P, I, IC, fo, it,
+                                                  nu, kIterMax, st)
+                     : launch_one<T, false, false>(g, ix, m, P, I, IC, fo, it,
+                                                   nu, kIterMax, st);
 }
 
 }  // namespace
@@ -438,16 +464,16 @@ int ngsld_pair_em_ichunk_f32(const void* gn, const void* sidx,
                              const void* maf, int64_t P, int I, int i_chunk,
                              int ignore_miss, void* f, void* n_iter,
                              void* n_used, void* stream) {
-  return launch<float>(gn, sidx, maf, P, I, i_chunk, ignore_miss, f, n_iter,
-                       n_used, stream);
+  return launch<float>(gn, sidx, maf, P, I, i_chunk, ignore_miss, -1, f,
+                       n_iter, n_used, stream);
 }
 
 int ngsld_pair_em_ichunk_f64(const void* gn, const void* sidx,
                              const void* maf, int64_t P, int I, int i_chunk,
                              int ignore_miss, void* f, void* n_iter,
                              void* n_used, void* stream) {
-  return launch<double>(gn, sidx, maf, P, I, i_chunk, ignore_miss, f, n_iter,
-                        n_used, stream);
+  return launch<double>(gn, sidx, maf, P, I, i_chunk, ignore_miss, -1, f,
+                        n_iter, n_used, stream);
 }
 
 // The cluster body: P clusters of C blocks of `threads` threads.
@@ -456,7 +482,7 @@ int ngsld_pair_em_cluster_f32(const void* gn, const void* sidx,
                               int threads, int ignore_miss, void* f,
                               void* n_iter, void* n_used, void* stream) {
   return cluster_launch<float>(gn, sidx, maf, P, I, C, threads, ignore_miss,
-                               f, n_iter, n_used, stream, nullptr);
+                               -1, f, n_iter, n_used, stream, nullptr);
 }
 
 int ngsld_pair_em_cluster_f64(const void* gn, const void* sidx,
@@ -464,7 +490,7 @@ int ngsld_pair_em_cluster_f64(const void* gn, const void* sidx,
                               int threads, int ignore_miss, void* f,
                               void* n_iter, void* n_used, void* stream) {
   return cluster_launch<double>(gn, sidx, maf, P, I, C, threads, ignore_miss,
-                                f, n_iter, n_used, stream, nullptr);
+                                -1, f, n_iter, n_used, stream, nullptr);
 }
 
 // How many clusters of the cluster body (C blocks of `threads` threads, I
@@ -475,11 +501,52 @@ int ngsld_pair_em_cluster_occupancy(int f64, int I, int C, int threads,
   int* o = static_cast<int*>(out);
   *o = 0;
   return f64 ? cluster_launch<double>(nullptr, nullptr, nullptr, 0, I, C,
-                                      threads, ignore_miss, nullptr, nullptr,
-                                      nullptr, nullptr, o)
+                                      threads, ignore_miss, -1, nullptr,
+                                      nullptr, nullptr, nullptr, o)
              : cluster_launch<float>(nullptr, nullptr, nullptr, 0, I, C,
-                                     threads, ignore_miss, nullptr, nullptr,
+                                     threads, ignore_miss, -1, nullptr, nullptr,
                                      nullptr, nullptr, o);
+}
+
+// The capped instances of both bodies: iter_cap >= 1
+int ngsld_pair_em_ichunk_cap_f32(const void* gn, const void* sidx,
+                                 const void* maf, int64_t P, int I,
+                                 int i_chunk, int ignore_miss, int iter_cap,
+                                 void* f, void* n_iter, void* n_used,
+                                 void* stream) {
+  if (iter_cap < 1) return (int)cudaErrorInvalidValue;
+  return launch<float>(gn, sidx, maf, P, I, i_chunk, ignore_miss, iter_cap, f,
+                       n_iter, n_used, stream);
+}
+
+int ngsld_pair_em_ichunk_cap_f64(const void* gn, const void* sidx,
+                                 const void* maf, int64_t P, int I,
+                                 int i_chunk, int ignore_miss, int iter_cap,
+                                 void* f, void* n_iter, void* n_used,
+                                 void* stream) {
+  if (iter_cap < 1) return (int)cudaErrorInvalidValue;
+  return launch<double>(gn, sidx, maf, P, I, i_chunk, ignore_miss, iter_cap,
+                        f, n_iter, n_used, stream);
+}
+
+int ngsld_pair_em_cluster_cap_f32(const void* gn, const void* sidx,
+                                  const void* maf, int64_t P, int I, int C,
+                                  int threads, int ignore_miss, int iter_cap,
+                                  void* f, void* n_iter, void* n_used,
+                                  void* stream) {
+  if (iter_cap < 1) return (int)cudaErrorInvalidValue;
+  return cluster_launch<float>(gn, sidx, maf, P, I, C, threads, ignore_miss,
+                               iter_cap, f, n_iter, n_used, stream, nullptr);
+}
+
+int ngsld_pair_em_cluster_cap_f64(const void* gn, const void* sidx,
+                                  const void* maf, int64_t P, int I, int C,
+                                  int threads, int ignore_miss, int iter_cap,
+                                  void* f, void* n_iter, void* n_used,
+                                  void* stream) {
+  if (iter_cap < 1) return (int)cudaErrorInvalidValue;
+  return cluster_launch<double>(gn, sidx, maf, P, I, C, threads, ignore_miss,
+                                iter_cap, f, n_iter, n_used, stream, nullptr);
 }
 
 }  // extern "C"

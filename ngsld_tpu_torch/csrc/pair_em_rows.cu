@@ -49,6 +49,11 @@
 // the same frequencies and takes the same stop decision: no broadcast. Two
 // slots make one barrier an iteration enough: a warp writes slot s again
 // only after the next barrier, which every reader of s has passed.
+//
+// The cap (ngsld_pair_em_rows_cap_f32/_f64; the TPU kernel's iter_cap): a
+// second instantiation of the kernel (kCap) stops the pairs still running
+// at iter_cap with n_iter == iter_cap; the entry points without it keep
+// ITER_MAX as a constant, and their code.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -131,12 +136,13 @@ __device__ __forceinline__ double lane_update(double& f0, double& f1,
   return eps;
 }
 
-template <typename T, bool kIgnoreMiss>
+template <typename T, bool kIgnoreMiss, bool kCap>
 __global__ void __launch_bounds__(kMaxThreads)
 pair_em_rows_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
                     const T* __restrict__ maf, int64_t P, int I, int vec16,
                     T* __restrict__ f_out, int32_t* __restrict__ n_iter_out,
-                    int32_t* __restrict__ n_used_out) {
+                    int32_t* __restrict__ n_used_out, int iter_cap) {
+  const int cap = kCap ? iter_cap : kIterMax;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   // the warps' sums, slot it & 1: sum k of warp w at part[(4 slot + k) W
@@ -182,8 +188,8 @@ pair_em_rows_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
   double f2 = m1 * (1.0 - m2), f3 = m1 * m2;
 
   const int k = lane >> 3, j = lane & 7;
-  int n_iter = kIterMax;
-  for (int it = 0; it < kIterMax; ++it) {
+  int n_iter = cap;
+  for (int it = 0; it < cap; ++it) {
     double a0 = 0, a1 = 0, a2 = 0, a3 = 0;
 #pragma unroll 4
     for (int i = tid; i < I; i += nthr) {
@@ -220,11 +226,11 @@ pair_em_rows_kernel(const T* __restrict__ gn, const int32_t* __restrict__ sidx,
   }
 }
 
-template <typename T, bool kIgnoreMiss>
+template <typename T, bool kIgnoreMiss, bool kCap>
 int launch_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
-               int threads, T* fo, int32_t* it, int32_t* nu,
+               int threads, T* fo, int32_t* it, int32_t* nu, int iter_cap,
                cudaStream_t st) {
-  auto kern = pair_em_rows_kernel<T, kIgnoreMiss>;
+  auto kern = pair_em_rows_kernel<T, kIgnoreMiss, kCap>;
   const size_t smem = 2 * 3 * (size_t)I * sizeof(T) + 64 * (threads / 32);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -234,14 +240,16 @@ int launch_one(const T* g, const int32_t* ix, const T* m, int64_t P, int I,
   constexpr int kPer = 16 / sizeof(T);
   const int vec16 = (3 * (int64_t)I) % kPer == 0 &&
                     reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  kern<<<(unsigned)P, threads, smem, st>>>(g, ix, m, P, I, vec16, fo, it, nu);
+  kern<<<(unsigned)P, threads, smem, st>>>(g, ix, m, P, I, vec16, fo, it, nu,
+                                            iter_cap);
   return (int)cudaGetLastError();
 }
 
+// iter_cap < 0: the instance without the cap (ITER_MAX, a constant)
 template <typename T>
 int launch(const void* gn, const void* sidx, const void* maf, int64_t P,
-           int I, int threads, int ignore_miss, void* f, void* n_iter,
-           void* n_used, void* stream) {
+           int I, int threads, int ignore_miss, int iter_cap, void* f,
+           void* n_iter, void* n_used, void* stream) {
   if (P <= 0) return 0;
   if (P > 0x7fffffff || I <= 0 || threads < 64 || threads > kMaxThreads ||
       threads % 32)
@@ -253,9 +261,15 @@ int launch(const void* gn, const void* sidx, const void* maf, int64_t P,
   T* fo = static_cast<T*>(f);
   int32_t* it = static_cast<int32_t*>(n_iter);
   int32_t* nu = static_cast<int32_t*>(n_used);
-  return ignore_miss
-             ? launch_one<T, true>(g, ix, m, P, I, threads, fo, it, nu, st)
-             : launch_one<T, false>(g, ix, m, P, I, threads, fo, it, nu, st);
+  if (iter_cap > 0)
+    return ignore_miss ? launch_one<T, true, true>(g, ix, m, P, I, threads, fo,
+                                                   it, nu, iter_cap, st)
+                       : launch_one<T, false, true>(g, ix, m, P, I, threads,
+                                                    fo, it, nu, iter_cap, st);
+  return ignore_miss ? launch_one<T, true, false>(g, ix, m, P, I, threads, fo,
+                                                  it, nu, kIterMax, st)
+                     : launch_one<T, false, false>(g, ix, m, P, I, threads, fo,
+                                                   it, nu, kIterMax, st);
 }
 
 }  // namespace
@@ -267,16 +281,35 @@ int ngsld_pair_em_rows_f32(const void* gn, const void* sidx, const void* maf,
                            int64_t P, int I, int threads, int ignore_miss,
                            void* f, void* n_iter, void* n_used,
                            void* stream) {
-  return launch<float>(gn, sidx, maf, P, I, threads, ignore_miss, f, n_iter,
-                       n_used, stream);
+  return launch<float>(gn, sidx, maf, P, I, threads, ignore_miss, -1, f,
+                       n_iter, n_used, stream);
 }
 
 int ngsld_pair_em_rows_f64(const void* gn, const void* sidx, const void* maf,
                            int64_t P, int I, int threads, int ignore_miss,
                            void* f, void* n_iter, void* n_used,
                            void* stream) {
-  return launch<double>(gn, sidx, maf, P, I, threads, ignore_miss, f, n_iter,
-                        n_used, stream);
+  return launch<double>(gn, sidx, maf, P, I, threads, ignore_miss, -1, f,
+                        n_iter, n_used, stream);
+}
+
+// The capped instance: iter_cap >= 1
+int ngsld_pair_em_rows_cap_f32(const void* gn, const void* sidx,
+                               const void* maf, int64_t P, int I, int threads,
+                               int ignore_miss, int iter_cap, void* f,
+                               void* n_iter, void* n_used, void* stream) {
+  if (iter_cap < 1) return (int)cudaErrorInvalidValue;
+  return launch<float>(gn, sidx, maf, P, I, threads, ignore_miss, iter_cap, f,
+                       n_iter, n_used, stream);
+}
+
+int ngsld_pair_em_rows_cap_f64(const void* gn, const void* sidx,
+                               const void* maf, int64_t P, int I, int threads,
+                               int ignore_miss, int iter_cap, void* f,
+                               void* n_iter, void* n_used, void* stream) {
+  if (iter_cap < 1) return (int)cudaErrorInvalidValue;
+  return launch<double>(gn, sidx, maf, P, I, threads, ignore_miss, iter_cap,
+                        f, n_iter, n_used, stream);
 }
 
 // The current device's shared memory a block may use: without opting in

@@ -17,6 +17,14 @@ PyTorch, with its two sweep modes.
   host: 3-stage emit pipeline (pull -> derive + format (native) -> write),
         rows in (s1, s2) order; degenerate pairs take refine's tiers
 
+Under the overlap ingest (loaders._OverlapIngest, the reference's gate:
+_overlap_engaged) the binary upload and the preprocess run slab by slab
+under the sweep instead: the plan and the strip decision read a MAF of
+zeros (at min_maf <= 0 their filter passes every site), each gather block
+waits for its sites (stage `sweep: ingest wait`), the strip sweep waits
+for the whole table, the emit reads the ingest's MAF, and a read error
+that surfaces mid-sweep empties the output before it is raised.
+
 Strip mode is f32-only and is picked when the plan is dense over its
 rectangles (effective utilization >= NGSLD_STRIP_MIN_UTIL on a CUDA
 device); NGSLD_BLOCK_STRIP=1/0 forces it on/off. Large cohorts take the
@@ -46,7 +54,7 @@ from .hostcols import _prefetch_blocks, _unpack
 from .io.writer import RowWriter
 from .kernels.pair_em import pick_gather_kernel
 from .kernels.strip_em import strip_i_align, strip_streamed, strip_tables
-from .loaders import _StreamedGLLoader, _StreamedTextLoader
+from .loaders import _OverlapIngest, _StreamedGLLoader, _StreamedTextLoader
 from .native import (LabelBlob, format_rows_derive, get_lib,
                      make_labels_blob)
 from .ops.preprocess import preprocess
@@ -63,17 +71,38 @@ from .utils.signals import GracefulStop
 _PENDING = object()
 
 
-def _load(pars, log, prec: str, device: torch.device, get_refiner):
+def _overlap_engaged(pars, out_fh, m) -> bool:
+    """The overlap ingest's gate (ngsld_tpu/engine_block.py:146-153):
+    binary input through the streamed loader, NGSLD_OVERLAP_UPLOAD not
+    "0", a plan that cannot depend on sites not yet read (min_maf <= 0:
+    the filter `maf < min_maf`, ngsLD.cpp:264,270, passes them all), one
+    device, no per-site echo of the tables (verbose < 7), and an output
+    that a mid-sweep read error can leave empty (a --checkpoint, which
+    writes the output only at the end, or a seekable one)."""
+    return (_StreamedGLLoader.applicable(pars)
+            and os.environ.get("NGSLD_OVERLAP_UPLOAD", "1") != "0"
+            and pars.min_maf <= 0
+            and m is None
+            and pars.verbose < 7
+            and (bool(pars.checkpoint)
+                 or bool(getattr(out_fh, "seekable", lambda: False)())))
+
+
+def _load(pars, log, prec: str, device: torch.device, get_refiner,
+          overlap=False):
     """Read, upload and preprocess the input; MAF to the host with its
     knife-edge sites repaired. -> (gn_d, maf_d, eg_d, maf, pos_dist,
-    labels)."""
+    labels, ingest). With overlap, the tables fill under the sweep:
+    ingest (loaders._OverlapIngest) holds them, maf is its maf_host, and
+    nothing may read a site before ingest.wait() or join_all() covers it;
+    without, ingest is None."""
     np_dt = np.float64 if prec == "f64" else np.float32
     loader = None
     raw_gl = False   # the loader delivers UNNORMALISED records
     if _StreamedGLLoader.applicable(pars):
         # binary input: file slabs stream to the device while the positions
         # parse below; normalisation happens on the device
-        loader = _StreamedGLLoader(pars, np_dt, device)
+        loader = _StreamedGLLoader(pars, np_dt, device, stream_np=overlap)
         raw_gl = True
     elif _StreamedTextLoader.applicable(pars):
         # gz-text input: native line parsing streams to the device the same
@@ -95,6 +124,21 @@ def _load(pars, log, prec: str, device: torch.device, get_refiner):
         for s in range(min(10, pars.n_sites)):
             log.log(6, f"{s}\t{pos_dist[s]:f}")
 
+    pre = functools.partial(
+        preprocess, call=pars.call_geno, N_thresh=pars.N_thresh,
+        call_thresh=pars.call_thresh, ignore_miss_data=pars.ignore_miss_data,
+        raw=raw_gl, in_log=pars.in_logscale)
+    if overlap:
+        ingest = _OverlapIngest(
+            loader, pars, torch.float64 if prec == "f64" else torch.float32,
+            pre, device)
+        log.count("gl_streamed")
+        log.count("overlap_ingest")
+        log.log(2, "==> overlap ingest: GL upload + preprocess run under "
+                   "the sweep (coverage-gated blocks)")
+        # knife_edge_sites is empty at min_maf <= 0, and the gate rules out
+        # the verbose-7 echo of the tables
+        return ingest.tables + (ingest.maf_host, pos_dist, labels, ingest)
     with log.phase("Preprocessing (call_geno, MAF, E[G]) on device"):
         if loader is not None:
             with log.phase("  gl stream+upload", level=2):
@@ -108,11 +152,7 @@ def _load(pars, log, prec: str, device: torch.device, get_refiner):
                     np.asarray(geno_log, np_dt)).to(device)
                 del geno_log
         with log.phase("  preprocess", level=2):
-            gn_d, maf_d, eg_d = preprocess(
-                gl_d, call=pars.call_geno, N_thresh=pars.N_thresh,
-                call_thresh=pars.call_thresh,
-                ignore_miss_data=pars.ignore_miss_data,
-                raw=raw_gl, in_log=pars.in_logscale)
+            gn_d, maf_d, eg_d = pre(gl_d)
             del gl_d
         # only MAF returns to the host (the plan needs it); the GL/E[G]
         # tables stay on the device for the sweep
@@ -135,7 +175,7 @@ def _load(pars, log, prec: str, device: torch.device, get_refiner):
         for s in range(min(10, pars.n_sites)):
             log.log(7, f"{s}\t{labels[s]}\t{maf[s]:f} "
                        f"({gn0[s,0]:f} {gn0[s,1]:f} {gn0[s,2]:f})")
-    return gn_d, maf_d, eg_d, maf, pos_dist, labels
+    return gn_d, maf_d, eg_d, maf, pos_dist, labels, None
 
 
 def _share(m, pars, dt, device, tabs):
@@ -189,11 +229,8 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
     """The block sweep on one device, or this rank's part of it on a mesh
     (m, parallel.mesh.Mesh): rank 0 loads, formats and writes; every rank
     walks the same plan and computes its share of each block or chunk."""
-    dt = torch.float64 if prec == "f64" else torch.float32
+    t_run = time.perf_counter()
     lead = m is None or m.rank == 0
-    n_shards = 1 if m is None else m.shard
-    shard_ind = 1 if m is None else m.shard_ind
-
     refiner = None
 
     def get_refiner():
@@ -202,13 +239,49 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
             refiner = StrictRefiner(pars)
         return refiner
 
-    tabs = (_load(pars, log, prec, device, get_refiner) if lead
-            else (None,) * 6)
-    gn_d, maf_d, eg_d, maf, pos_dist, labels = tabs
+    overlap = _overlap_engaged(pars, out_fh, m)
+    tabs = (_load(pars, log, prec, device, get_refiner, overlap) if lead
+            else (None,) * 7)
+    gn_d, maf_d, eg_d, maf, pos_dist, labels, ingest = tabs
+    try:
+        _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner,
+               gn_d, maf_d, eg_d, maf, pos_dist, labels, ingest)
+    except BaseException:
+        if ingest is not None and ingest.failed and not pars.checkpoint:
+            # rows went out before the read error surfaced; the reference
+            # prints nothing on bad input (it reads the whole table first,
+            # read_data.cpp:44): the gate made sure the output can seek
+            try:
+                out_fh.seek(0)
+                out_fh.truncate()
+            except (OSError, ValueError):
+                pass
+        raise
+    finally:
+        if ingest is not None:
+            ingest.stop()   # a no-op once the ingest has read everything
+    if refiner is not None:
+        for k, v in sorted(refiner.t.items()):
+            log.count_time(f"sweep: fmt/refine/{k}", v)
+    log.summary()
+
+
+def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
+           maf_d, eg_d, maf, pos_dist, labels, ingest):
+    """_run_torch_body's sweep over rank 0's tables (shared with the other
+    ranks here), or over the overlap ingest's as they fill."""
+    dt = torch.float64 if prec == "f64" else torch.float32
+    lead = m is None or m.rank == 0
+    n_shards = 1 if m is None else m.shard
+    shard_ind = 1 if m is None else m.shard_ind
     if m is not None:
         with log.phase("Tables to every rank (broadcast from rank 0)"):
             gn_d, maf_d, eg_d, maf, pos_dist = _share(
                 m, pars, dt, device, (gn_d, maf_d, eg_d, maf, pos_dist))
+    # under the overlap the plan and the strip decision see a MAF of
+    # zeros: at min_maf <= 0 their filter passes every site, and nothing
+    # reads a site's MAF before the ingest has it
+    maf_plan = maf if ingest is None else np.zeros(pars.n_sites)
 
     # every device receives the same share of a block (the reference's
     # rounding, so the block decomposition and the checkpoint fingerprint
@@ -224,7 +297,7 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
     strip_env = os.environ.get("NGSLD_BLOCK_STRIP")
     if strip_env != "0" and prec == "f32":
         hi_b = band_limits(pos_dist, pars.max_kb_dist, pars.max_snp_dist)
-        ok_b = ~(maf < pars.min_maf)
+        ok_b = ~(maf_plan < pars.min_maf)
         # padded to whole anchor tiles; pad sites are not ok. (The TPU
         # engine adds one more all-dead partner tile to aim the padding
         # slots of a fixed-size dispatch at; here a dispatch launches
@@ -244,6 +317,13 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
             log.log(2, f"==> strip sweep skipped: eff util {u_eff:.3f} < "
                        f"{min_util} (gather path)")
     if strip_mode:
+        if ingest is not None:
+            # the strip tables take the whole gn/eg tables (the upload
+            # still ran under the positions parse, the plan and the strip
+            # decision)
+            with log.phase("  gl ingest join (strip tables)", level=2):
+                gn_d, maf_d, eg_d = ingest.join_all()
+            ingest.tables = ()   # freed with the gather tables below
         # past the resident kernel's cohort limit strip_em takes the
         # streamed kernel, and the tables pad the individual axis to its
         # chunk. With --shard_ind the step is parallel.strip_ind's (no
@@ -552,6 +632,14 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
     digest = hashlib.sha256()
     n_blocks = 0
     interrupted = False
+
+    def first_dispatch():
+        """Stage `sweep: to first dispatch`: from the start of the run to
+        the end of the first block's or chunk's dispatch (the time the
+        device waits for the load before any sweep work)."""
+        if "sweep: to first dispatch" not in log.time_counters:
+            log.count_time("sweep: to first dispatch",
+                           time.perf_counter() - t_run)
     with log.phase("compute: banded pair sweep"), \
             (GracefulStop(log) if lead else _NoStop()) as gs:
         if strip_mode:
@@ -650,7 +738,7 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
                         if rem:
                             yield flush(rem)
 
-                for blk0 in iter_pair_blocks(pars, maf, pos_dist,
+                for blk0 in iter_pair_blocks(pars, maf_plan, pos_dist,
                                              block_pairs=chunk):
                     ks = blk0.s1 // TA
                     edges = np.r_[0, np.flatnonzero(np.diff(ks)) + 1,
@@ -753,6 +841,7 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
                             *args, torch.from_numpy(sel).to(device))
                     log.count_time("sweep: dispatch",
                                    time.perf_counter() - t0)
+                    first_dispatch()
                     emit_q.put((bi, blk, dev_out, meta,
                                 sel if use_flat else None, spec))
             finally:
@@ -763,7 +852,8 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
                 raise emit_err[0]
         else:
             blocks_it = enumerate(_prefetch_blocks(
-                iter_pair_blocks(pars, maf, pos_dist, block_pairs=chunk)))
+                iter_pair_blocks(pars, maf_plan, pos_dist,
+                                 block_pairs=chunk)))
             try:
                 while True:
                     t_top = time.perf_counter()
@@ -788,6 +878,13 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
                     if pars.verbose >= 3:
                         log.log(3, f"> Block {bi}: anchors "
                                    f"{blk.s1[0]}..{blk.s1[-1]}, {P} pairs")
+                    if ingest is not None:
+                        # dispatch only once every site of the block is in
+                        tw = time.perf_counter()
+                        gn_d, maf_d, eg_d = ingest.wait(
+                            int(blk.s2.max()) + 1)
+                        log.count_time("sweep: ingest wait",
+                                       time.perf_counter() - tw)
                     t0 = time.perf_counter()
                     # this row's contiguous piece of the block (all of it
                     # on one device)
@@ -816,6 +913,7 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
                             gn_d, eg_d, maf_d, sidx,
                             pars.ignore_miss_data)  # async
                     log.count_time("sweep: dispatch", time.perf_counter() - t0)
+                    first_dispatch()
                     emit_q.put((bi, blk, dev_out, None, None, spec))
             finally:
                 # always shut the pipeline down, even when the loop raises:
@@ -826,6 +924,12 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
             if emit_err:
                 raise emit_err[0]
 
+    if ingest is not None and not interrupted:
+        # a tail-of-file read error (NaN, EOF) surfaces even when no block
+        # needed the last sites: the reference reads the whole table before
+        # it computes anything (read_data.cpp:13-116)
+        ingest.join_all()
+        log.count("ingest_slabs", ingest.n_slabs)
     if interrupted:
         hint = (f"resume with the same --checkpoint {ckpt.dir}"
                 if ckpt is not None else
@@ -851,7 +955,3 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
             hdr = strict.header_line(pars.extend_out)
             out_fh.write(hdr if hasattr(out_fh, "encoding") else hdr.encode())
             ckpt.concatenate(out_fh, n_blocks)
-    if refiner is not None:
-        for k, v in sorted(refiner.t.items()):
-            log.count_time(f"sweep: fmt/refine/{k}", v)
-    log.summary()

@@ -46,6 +46,11 @@ ENTRY_POINTS = {
     "pair_em_rows": {
         **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp]
            for name in ("ngsld_pair_em_rows_f32", "ngsld_pair_em_rows_f64")},
+        # the capped instance: iter_cap after ignore_miss
+        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp, _vp,
+                  _vp]
+           for name in ("ngsld_pair_em_rows_cap_f32",
+                        "ngsld_pair_em_rows_cap_f64")},
         "ngsld_smem_limits": [_vp]},
     "pair_em_ichunk": {
         **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp]
@@ -53,8 +58,14 @@ ENTRY_POINTS = {
                         "ngsld_pair_em_ichunk_f64")},
         **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp, _vp,
                   _vp]
-           for name in ("ngsld_pair_em_cluster_f32",
+           for name in ("ngsld_pair_em_ichunk_cap_f32",
+                        "ngsld_pair_em_ichunk_cap_f64",
+                        "ngsld_pair_em_cluster_f32",
                         "ngsld_pair_em_cluster_f64")},
+        **{name: [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _vp, _vp,
+                  _vp, _vp]
+           for name in ("ngsld_pair_em_cluster_cap_f32",
+                        "ngsld_pair_em_cluster_cap_f64")},
         "ngsld_pair_em_cluster_occupancy": [_i32] * 5 + [_vp]},
     "strip_em": {
         "ngsld_strip_em": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 7

@@ -27,14 +27,16 @@ size, threads) lives here, so that the CPU tests reach it. LAUNCHES,
 LAUNCHES_ROWS and LAUNCHES_ICHUNK count kernel launches, nothing else;
 LAUNCHES_ICHUNK_STREAM counts the launches of pair_em_ichunk that took the
 streamed body, LAUNCHES_OPTS those of pair_em_gather that took the option
-instance.
+instance, LAUNCHES_ROWS_CAP and LAUNCHES_ICHUNK_CAP those of the rows and
+ichunk rungs that took the capped instance.
 
 pair_em_gather also takes the options of pallas_em._em_kernel (an
 iteration cap, a warm start, the export of each pair's last two eps), and
 pair_em_phased is the two-phase driver built on them (pallas_em.
 pair_em_phased): a capped launch, one small pull, the capped pairs resumed
-warm. The rows and ichunk rungs take no options (nothing in the
-reference passes them one).
+warm. The rows and ichunk rungs take the cap of _em_kernel_rows and
+_em_kernel_ichunk (iter_cap; f stays in the table dtype, as there), and
+no warm start or eps export (their JAX wrappers take none).
 """
 
 from __future__ import annotations
@@ -49,8 +51,10 @@ from .build import smem_limits
 LAUNCHES = 0                 # pair_em_gather
 LAUNCHES_OPTS = 0            # pair_em_gather, its option instance
 LAUNCHES_ROWS = 0            # pair_em_rows
+LAUNCHES_ROWS_CAP = 0        # pair_em_rows, its capped instance
 LAUNCHES_ICHUNK = 0          # pair_em_ichunk, either body
 LAUNCHES_ICHUNK_STREAM = 0   # pair_em_ichunk, the streamed body
+LAUNCHES_ICHUNK_CAP = 0      # pair_em_ichunk, either body's capped instance
 
 # individuals per staged chunk of pair_em_ichunk's streamed body: 2 buffers
 # x 2 rows x 12 bytes x 1,024 = 48 KB of shared memory in f32
@@ -93,7 +97,7 @@ def _options(iter_cap, f0, want_eps) -> bool:
     return iter_cap != ITER_MAX or f0 is not None or bool(want_eps)
 
 
-def _check_options(gn, sidx, iter_cap, f0):
+def _check_options(gn, sidx, iter_cap, f0=None):
     if int(iter_cap) != iter_cap or iter_cap < 1:
         raise ValueError(f"iter_cap must be a positive integer, got "
                          f"{iter_cap}")
@@ -134,19 +138,28 @@ def pair_em_gather_ref(gn: torch.Tensor, sidx: torch.Tensor,
                         f0=f0, want_eps=want_eps)
 
 
+def _capped_ref(gn, sidx, maf, ignore_miss_data, i_chunk, iter_cap):
+    """_pair_em_ref under a cap alone: f in the table dtype."""
+    f, n_iter, n_used = _pair_em_ref(gn, sidx, maf, ignore_miss_data,
+                                     i_chunk=i_chunk, iter_cap=iter_cap)
+    return f.to(gn.dtype), n_iter, n_used
+
+
 def pair_em_rows_ref(gn: torch.Tensor, sidx: torch.Tensor,
-                     maf: torch.Tensor, ignore_miss_data: bool):
+                     maf: torch.Tensor, ignore_miss_data: bool,
+                     iter_cap: int = ITER_MAX):
     """Plain version of pair_em_rows: the whole row summed at once, in
     f64."""
-    return _pair_em_ref(gn, sidx, maf, ignore_miss_data)
+    return _capped_ref(gn, sidx, maf, ignore_miss_data, None, iter_cap)
 
 
 def pair_em_ichunk_ref(gn: torch.Tensor, sidx: torch.Tensor,
                        maf: torch.Tensor, ignore_miss_data: bool,
-                       i_chunk: int = I_CHUNK):
+                       i_chunk: int = I_CHUNK, iter_cap: int = ITER_MAX):
     """Plain version of pair_em_ichunk: the per-individual terms added up
     chunk by chunk in index order, in f64 (the last chunk may be partial)."""
-    return _pair_em_ref(gn, sidx, maf, ignore_miss_data, i_chunk=int(i_chunk))
+    return _capped_ref(gn, sidx, maf, ignore_miss_data, int(i_chunk),
+                       iter_cap)
 
 
 def _check(gn, sidx, maf):
@@ -358,6 +371,14 @@ def _launch(lib_name, fn_stem, gn, sidx, maf, ignore_miss_data, pre=(),
     return f, n_iter, n_used
 
 
+def _entry(stem, iter_cap):
+    """(entry point, its arguments after ignore_miss) of a rows or ichunk
+    launch: the capped instance's for a cap below ITER_MAX."""
+    if iter_cap == ITER_MAX:
+        return stem, ()
+    return stem + "_cap", (int(iter_cap),)
+
+
 def _device_kind(gn, name):
     """"cpu" or "cuda"; any other device raises (there is no fallback)."""
     if gn.device.type not in ("cpu", "cuda"):
@@ -426,14 +447,18 @@ def pair_em_gather(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
 
 
 def pair_em_rows(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
-                 ignore_miss_data: bool):
+                 ignore_miss_data: bool, iter_cap: int = ITER_MAX):
     """pair_em_gather's function with both rows of a pair resident in
     shared memory (one block per pair). Raises ValueError for a cohort
-    whose rows exceed the device's opt-in shared memory."""
-    global LAUNCHES_ROWS
+    whose rows exceed the device's opt-in shared memory. iter_cap >= 1
+    (pallas_em._em_kernel_rows's): the pairs still running there stop with
+    n_iter == iter_cap, through the kernel's capped instance (the launch
+    without a cap keeps its code)."""
+    global LAUNCHES_ROWS, LAUNCHES_ROWS_CAP
     _check(gn, sidx, maf)
+    _check_options(gn, sidx, iter_cap)
     if _device_kind(gn, "pair-EM rows") == "cpu":
-        return pair_em_rows_ref(gn, sidx, maf, ignore_miss_data)
+        return pair_em_rows_ref(gn, sidx, maf, ignore_miss_data, iter_cap)
     I, esz = gn.shape[1], gn.element_size()
     threads = rows_threads(I, esz, gn.device)
     need = rows_block_smem(I, esz, threads)
@@ -444,9 +469,11 @@ def pair_em_rows(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
             f"shared memory, the device allows {limit}; use pair_em_ichunk")
     if sidx.shape[1] == 0:
         return _empty(gn, sidx)
-    out = _launch("pair_em_rows", "ngsld_pair_em_rows", gn, sidx, maf,
-                  ignore_miss_data, pre=(threads,))
+    stem, post = _entry("ngsld_pair_em_rows", iter_cap)
+    out = _launch("pair_em_rows", stem, gn, sidx, maf, ignore_miss_data,
+                  pre=(threads,), post=post)
     LAUNCHES_ROWS += 1
+    LAUNCHES_ROWS_CAP += bool(post)
     return out
 
 
@@ -480,20 +507,27 @@ def _cluster_fits(gn, I, blocks, threads, ignore_miss_data):
 
 
 def pair_em_ichunk(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
-                   ignore_miss_data: bool, i_chunk: int = I_CHUNK):
+                   ignore_miss_data: bool, i_chunk: int = I_CHUNK,
+                   iter_cap: int = ITER_MAX):
     """pair_em_gather's function for any cohort size: the rows held across
     a cluster of ichunk_cluster blocks (each block a slice, in its shared
     memory for the whole EM), or, past the cluster's capacity, streamed
     through shared memory in chunks of i_chunk individuals inside every
     iteration (one block per pair). The route is decided here, before the
-    launch, by cohort size; a cluster the card cannot hold raises."""
-    global LAUNCHES_ICHUNK
+    launch, by cohort size; a cluster the card cannot hold raises.
+    iter_cap >= 1 (pallas_em._em_kernel_ichunk's): the pairs still running
+    there stop with n_iter == iter_cap, through the capped instance of
+    either body (the card is asked about the cluster of the instance
+    without the cap: the same shared memory and block shape)."""
+    global LAUNCHES_ICHUNK, LAUNCHES_ICHUNK_CAP
     _check(gn, sidx, maf)
+    _check_options(gn, sidx, iter_cap)
     i_chunk = int(i_chunk)
     if i_chunk < 1:
         raise ValueError(f"i_chunk must be positive, got {i_chunk}")
     if _device_kind(gn, "pair-EM ichunk") == "cpu":
-        return pair_em_ichunk_ref(gn, sidx, maf, ignore_miss_data, i_chunk)
+        return pair_em_ichunk_ref(gn, sidx, maf, ignore_miss_data, i_chunk,
+                                  iter_cap)
     I, esz = gn.shape[1], gn.element_size()
     blocks = ichunk_cluster(I, esz, gn.device)
     if blocks is not None:
@@ -501,20 +535,24 @@ def pair_em_ichunk(gn: torch.Tensor, sidx: torch.Tensor, maf: torch.Tensor,
         _cluster_fits(gn, I, blocks, threads, ignore_miss_data)
         if sidx.shape[1] == 0:
             return _empty(gn, sidx)
-        out = _launch("pair_em_ichunk", "ngsld_pair_em_cluster", gn, sidx,
-                      maf, ignore_miss_data, pre=(blocks, threads))
+        stem, post = _entry("ngsld_pair_em_cluster", iter_cap)
+        out = _launch("pair_em_ichunk", stem, gn, sidx, maf,
+                      ignore_miss_data, pre=(blocks, threads), post=post)
         LAUNCHES_ICHUNK += 1
+        LAUNCHES_ICHUNK_CAP += bool(post)
         return out
-    return _pair_em_ichunk_stream(gn, sidx, maf, ignore_miss_data, i_chunk)
+    return _pair_em_ichunk_stream(gn, sidx, maf, ignore_miss_data, i_chunk,
+                                  iter_cap)
 
 
 def _pair_em_ichunk_stream(gn, sidx, maf, ignore_miss_data,
-                           i_chunk=I_CHUNK):
+                           i_chunk=I_CHUNK, iter_cap=ITER_MAX):
     """pair_em_ichunk's streamed body on CUDA tensors of the shapes
     pair_em_ichunk checks, whatever the cohort size: pair_em_ichunk routes
     here past the cluster's capacity; chip_smoke.py and the gpu-marked
     tests call it directly to hold the body against its plain version."""
-    global LAUNCHES_ICHUNK, LAUNCHES_ICHUNK_STREAM
+    global LAUNCHES_ICHUNK, LAUNCHES_ICHUNK_STREAM, LAUNCHES_ICHUNK_CAP
+    _check_options(gn, sidx, iter_cap)
     esz = gn.element_size()
     need = 2 * rows_smem_bytes(i_chunk, esz) + _STREAM_RESERVED
     limit = smem_limits(gn.device)[1]
@@ -524,9 +562,11 @@ def _pair_em_ichunk_stream(gn, sidx, maf, ignore_miss_data,
             f"memory, the device allows {limit}")
     if sidx.shape[1] == 0:
         return _empty(gn, sidx)
-    out = _launch("pair_em_ichunk", "ngsld_pair_em_ichunk", gn, sidx, maf,
-                  ignore_miss_data, pre=(i_chunk,))
+    stem, post = _entry("ngsld_pair_em_ichunk", iter_cap)
+    out = _launch("pair_em_ichunk", stem, gn, sidx, maf, ignore_miss_data,
+                  pre=(i_chunk,), post=post)
     LAUNCHES_ICHUNK += 1
+    LAUNCHES_ICHUNK_CAP += bool(post)
     LAUNCHES_ICHUNK_STREAM += 1
     return out
 

@@ -12,12 +12,19 @@ Each replaces read -> f64 normalise -> f32 narrow -> one monolithic upload
 produces slabs at the engine's precision, an uploader thread copies each
 to the device, join() concatenates them there. On a CUDA device a slab
 crosses from pinned host memory with a non-blocking copy on a side stream;
-join() synchronises that stream before the table is handed over. Not
-carried over: the tunnel keep-alive hooks and the overlap ingest.
+join() synchronises that stream before the table is handed over.
+
+_OverlapIngest goes one step further for binary input: the binary loader
+in its streaming mode (stream_np=True: the reader thread only) feeds an
+ingest thread that uploads and preprocesses slab by slab into full-size
+device tables while the block sweep already runs, each block dispatched
+once its sites are in (the engine's gate: engine_block._overlap_engaged,
+NGSLD_OVERLAP_UPLOAD). Not carried over: the tunnel keep-alive hooks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -30,25 +37,30 @@ from . import strict
 
 class _SlabUploader:
     """The part both loaders share: a bounded queue of host slabs, an
-    uploader thread, and join()."""
+    uploader thread, and join(); or, with stream_np=True, no uploader and
+    the host slabs handed out by np_slabs()."""
 
-    def __init__(self, pars, np_dtype, device, name: str):
+    def __init__(self, pars, np_dtype, device, name: str, stream_np=False):
         self._pars = pars
         self._dt = np_dtype
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
-        self._stream = torch.cuda.Stream(self._device) if self._cuda else None
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._cuda and not stream_np else None)
         self._q = queue.Queue(maxsize=2)
         self._slabs = []    # device slabs, file order
         self._pinned = []   # host sides of copies still in flight
         self._err = []
+        self._ended = False  # np_slabs() has taken the end of the stream
         self.n_slabs = 0    # set by join()
         self._reader = threading.Thread(
             target=self._read_guarded, daemon=True, name=f"ngsld-{name}-read")
-        self._uploader = threading.Thread(
-            target=self._upload, daemon=True, name=f"ngsld-{name}-upload")
         self._reader.start()
-        self._uploader.start()
+        self._uploader = None
+        if not stream_np:
+            self._uploader = threading.Thread(
+                target=self._upload, daemon=True, name=f"ngsld-{name}-upload")
+            self._uploader.start()
 
     def _read(self):
         raise NotImplementedError
@@ -82,6 +94,26 @@ class _SlabUploader:
             # drain so the reader never blocks on a full queue
             while self._q.get() is not None:
                 pass
+
+    def np_slabs(self):
+        """stream_np mode: yield the host slabs in file order (the reader
+        keeps at most 2 queued); raises the reader's error (the reference's
+        NaN and EOF semantics) after the stream ends."""
+        while True:
+            a = self._q.get()
+            if a is None:
+                break
+            yield a
+        self._ended = True
+        self._reader.join()
+        if self._err:
+            raise self._err[0]
+
+    def drain(self):
+        """stream_np mode, a consumer that stops early: take the slabs left
+        so that the reader never blocks on a full queue."""
+        while not self._ended:
+            self._ended = self._q.get() is None
 
     def join(self) -> torch.Tensor:
         """The whole (n_sites, n_ind, 3) table on the device; raises the
@@ -128,8 +160,8 @@ class _StreamedGLLoader(_SlabUploader):
             return False
         return size == pars.n_sites * pars.n_ind * 3 * 8
 
-    def __init__(self, pars, np_dtype, device):
-        super().__init__(pars, np_dtype, device, "gl")
+    def __init__(self, pars, np_dtype, device, stream_np=False):
+        super().__init__(pars, np_dtype, device, "gl", stream_np)
 
     def _read(self):
         p = self._pars
@@ -385,3 +417,124 @@ def _ring_sharded_tables(pars, n_dev, B, Sp, np_dt, log, device, m=None,
     for s in range(lo, lo + rows, step):
         put(s, geno_log[s:min(s + step, lo + rows)])
     return gl, False
+
+
+class _OverlapIngest:
+    """Slab-wise upload and preprocess UNDER the block sweep
+    (ngsld_tpu/loaders.py::_OverlapIngest).
+
+    The serial chain join() -> preprocess(whole table) -> sweep puts the
+    whole host->device GL transfer before the first block. Here one ingest
+    thread takes the binary loader's host slabs (np_slabs(), file order),
+    and for each: pins it, copies it to the device with a non-blocking copy
+    on its own CUDA stream, runs the engine's preprocess (`pre`, raw=True)
+    on it there, writes the results into the slab's rows of full-size
+    device tables, and pulls the slab's MAF into maf_host as f64. That pull
+    waits for the slab's whole chain on the side stream; only after it does
+    the thread raise the coverage (sites resident) and wake the waiters, so
+    a sweep that has passed wait(need) launches on its own stream only
+    reads rows that are written. Each site's preprocess reads its own row
+    alone (ops.preprocess.site_sum), so the tables are the monolithic
+    preprocess's byte for byte.
+
+    The tables (gn (S, I, 3), maf (S,), eg (S, I) in `dt`) are allocated
+    once, on the sweep's stream, before the thread starts; the slabs'
+    temporaries are allocated and freed on the side stream. On the CPU the
+    same thread runs without a stream.
+
+    maf_host: the MAF (f64), filled slab by slab: read a site's value only
+    after a wait() or join_all() that covers it. failed: the ingest raised
+    (the reader's NaN error, a premature end, anything else), after which
+    the engine truncates a partial output (the reference prints nothing on
+    bad input, read_data.cpp:44). Every waiter is woken on failure.
+    """
+
+    def __init__(self, loader, pars, dt, pre, device):
+        n, m = pars.n_sites, pars.n_ind
+        device = torch.device(device)
+        self._loader = loader
+        self._pre = pre
+        self._n = n
+        self.maf_host = np.zeros(n, np.float64)
+        self.failed = False
+        self.n_slabs = 0
+        self._err = None
+        self._cov = 0
+        self._cv = threading.Condition()
+        self._stop = threading.Event()
+        self.tables = (torch.empty((n, m, 3), dtype=dt, device=device),
+                       torch.empty(n, dtype=dt, device=device),
+                       torch.empty((n, m), dtype=dt, device=device))
+        self._stream = None
+        if device.type == "cuda":
+            self._stream = torch.cuda.Stream(device)
+            # the allocator may hand the tables memory that work queued
+            # earlier on the sweep's stream still reads
+            self._stream.wait_stream(torch.cuda.current_stream(device))
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ngsld-ingest")
+        self._thread.start()
+
+    def _run(self):
+        gn, maf, eg = self.tables
+        off = 0
+        try:
+            with (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext()):
+                for slab in self._loader.np_slabs():
+                    if self._stop.is_set():
+                        break
+                    k = len(slab)
+                    t = torch.from_numpy(slab)
+                    if self._stream is not None:
+                        t = t.pin_memory().to(gn.device, non_blocking=True)
+                    gs, ms, es = self._pre(t)
+                    gn[off:off + k].copy_(gs)
+                    maf[off:off + k].copy_(ms)
+                    eg[off:off + k].copy_(es)
+                    # the pull synchronises the side stream: every write
+                    # above has landed when it returns
+                    self.maf_host[off:off + k] = ms.cpu().numpy()
+                    del t, gs, ms, es
+                    off += k
+                    with self._cv:
+                        self._cov = off
+                        self.n_slabs += 1
+                        self._cv.notify_all()
+            if self._stop.is_set():
+                self._loader.drain()
+            elif off != self._n:   # the reader stopped early without raising
+                raise strict.StrictError(
+                    "read_geno", "GENO file at premature EOF. "
+                    "Check GENO file and number of sites!")
+        except BaseException as e:
+            with self._cv:
+                self._err = e
+                self.failed = True
+                self._cv.notify_all()
+            self._loader.drain()
+
+    def wait(self, need: int):
+        """Block until the first `need` sites are in the tables; returns
+        the (gn, maf, eg) device tables. Raises the ingest's error if it
+        failed short of them (the reference's NaN and EOF semantics)."""
+        with self._cv:
+            while self._cov < need and self._err is None:
+                self._cv.wait()
+            if self._cov < need:
+                raise self._err
+        return self.tables
+
+    def join_all(self):
+        """Wait for the whole table (the strip sweep; the end of a run, so
+        that a tail-of-file read error surfaces); returns the tables."""
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self.tables
+
+    def stop(self):
+        """A run that ends without join_all(): the thread stops after the
+        slab in hand, and the reader's queue is drained. Joins nothing."""
+        self._stop.set()
+

@@ -54,10 +54,26 @@ def call_geno(gl_log: torch.Tensor, N_thresh: float,
     return torch.where((max_pp >= call_thresh)[..., None], onehot, out)
 
 
+def site_sum(x: torch.Tensor) -> torch.Tensor:
+    """x (n_sites, n) summed over its second axis in a fixed pairwise
+    order: the first half of the columns added to the second, element by
+    element, until one is left (an odd column rides along to the next
+    round). A reduction kernel picks its launch shape, and so the order of
+    its additions, from the tensor's shape; here every site's bits depend
+    on its own row alone, so a table preprocessed slab by slab (the overlap
+    ingest) is the monolithic table byte for byte, on any device."""
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        y = x[:, :h] + x[:, h:2 * h]
+        x = torch.cat([y, x[:, 2 * h:]], dim=1) if x.shape[1] % 2 else y
+    return x[:, 0]
+
+
 def maf_sums(gl_log: torch.Tensor, ignore_miss_data: bool):
     """est_maf's numerator sum(pp1 + 2*pp2) and denominator 2 * n_used, a
-    site each: sums over individuals, which a table split over the
-    individual axis adds up over its ranks before dividing."""
+    site each: sums over individuals (site_sum's order), which a table
+    split over the individual axis adds up over its ranks before
+    dividing."""
     pp = torch.exp(normalize_gl(gl_log))
     if ignore_miss_data:
         include = ~miss_mask(gl_log)
@@ -65,7 +81,7 @@ def maf_sums(gl_log: torch.Tensor, ignore_miss_data: bool):
         include = torch.ones(gl_log.shape[:2], dtype=torch.bool,
                              device=gl_log.device)
     eg = pp[..., 1] + 2.0 * pp[..., 2]
-    num = torch.where(include, eg, torch.zeros_like(eg)).sum(dim=1)
+    num = site_sum(torch.where(include, eg, torch.zeros_like(eg)))
     den = 2.0 * include.sum(dim=1).to(gl_log.dtype)
     return num, den
 

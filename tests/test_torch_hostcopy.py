@@ -23,6 +23,7 @@ import ngsld_tpu.strict as j_strict
 import ngsld_tpu.utils.simulate as j_sim
 import ngsld_tpu_torch.checkpoint as t_ckpt
 import ngsld_tpu_torch.cli as t_cli
+import ngsld_tpu_torch.engine_block as t_eb
 import ngsld_tpu_torch.gsl_rng as t_rng
 import ngsld_tpu_torch.hostcols as t_hc
 import ngsld_tpu_torch.loaders as t_loaders
@@ -381,7 +382,13 @@ def test_loaders_copy_keeps_the_rules_and_imports_only_the_port():
                          re.M)
     for knob in ("NGSLD_NO_FASTBIN", "NGSLD_NO_FASTTEXT", "NGSLD_SLAB_BYTES"):
         assert knob in src and knob in inspect.getsource(j_loaders)
-    # the ring loader came with the ring; the overlap ingest waits for
-    # its slice
+    # the overlap ingest's knob: its gate sits in engine_block in both
+    assert "NGSLD_OVERLAP_UPLOAD" in inspect.getsource(t_eb) \
+        and "NGSLD_OVERLAP_UPLOAD" in inspect.getsource(j_eb)
+    # the ring loader came with the ring, the overlap ingest with its slice
     assert hasattr(t_loaders, "_ring_sharded_tables")
-    assert not hasattr(t_loaders, "_OverlapIngest")
+    assert hasattr(t_loaders, "_OverlapIngest") \
+        and hasattr(j_loaders, "_OverlapIngest")
+    for name in ("wait", "join_all"):
+        assert callable(getattr(t_loaders._OverlapIngest, name))
+        assert callable(getattr(j_loaders._OverlapIngest, name))

@@ -2,7 +2,8 @@
 pair_em_gather's iteration cap, warm start and eps export (pallas_em.
 _em_kernel's), pair_em_phased (pallas_em.pair_em_phased), strip_em's
 want_eps (pallas_strip._strip_kernel's) and strip_em_twophase
-(dev/strip_twophase.py). The JAX side runs its Pallas kernels in
+(dev/strip_twophase.py); the rows and ichunk rungs' cap is held against
+the JAX kernels in tests/test_torch_largecohort.py, its launch here. The JAX side runs its Pallas kernels in
 interpret mode; the port's wrappers take their plain versions on CPU
 tensors. The kernels themselves are held against those plain versions in
 the `gpu`-marked cases and by chip_smoke.py phase 11 on the card.
@@ -210,15 +211,18 @@ def test_phase2_order_is_hardest_first():
 
 
 def test_options_on_other_rungs_raise():
-    """The rows and ichunk rungs take no options: a capped, warm or eps
-    call that lands there raises, naming the rung, on any device."""
+    """The rows and ichunk rungs take the cap alone (as their JAX wrappers
+    do): a warm or eps call that lands there raises, naming the rung, on
+    any device, and so does a cap below 1."""
     gn, sidx, maf = _stacked(*_case(8, 6, seed=2))
     f0 = torch.full((8, 4), 0.25, dtype=torch.float64)
     for fn, name in ((kmod.pair_em_rows, "pair_em_rows"),
                      (kmod.pair_em_ichunk, "pair_em_ichunk")):
-        for kw in (dict(iter_cap=16), dict(f0=f0), dict(want_eps=True)):
+        for kw in (dict(f0=f0), dict(want_eps=True)):
             with pytest.raises(TypeError, match=name):
                 fn(gn, sidx, maf, False, **kw)
+        with pytest.raises(ValueError, match="iter_cap"):
+            fn(gn, sidx, maf, False, iter_cap=0)
     # the gather rung's own checks
     with pytest.raises(ValueError, match="iter_cap"):
         kmod.pair_em_gather(gn, sidx, maf, False, iter_cap=0)
@@ -260,6 +264,43 @@ def test_option_launch_arguments(monkeypatch):
     assert calls[-1][2][1:3] == (None, None)
     assert out[0].dtype == torch.float64 and out[3].shape == (8, 2)
     assert kmod.LAUNCHES == n0 + 3
+
+
+@pytest.mark.parametrize("rung", ["rows", "cluster", "stream"])
+def test_cap_launch_arguments(monkeypatch, rung):
+    """On the card path: the launch without a cap (or at ITER_MAX) keeps
+    its entry point and arguments; with one, the capped entry point gets
+    the cap after ignore_miss, f stays in the table dtype, and the capped
+    launches are counted apart."""
+    calls = []
+
+    def launch(lib_name, fn_stem, gn, sidx, maf, ign, pre=(), post=(),
+               f_dtype=None):
+        calls.append((lib_name, fn_stem, pre, post, f_dtype))
+        return kmod._empty(gn, sidx, f_dtype)
+
+    monkeypatch.setattr(kmod, "_device_kind", lambda gn, name: "cuda")
+    monkeypatch.setattr(kmod, "_launch", launch)
+    monkeypatch.setattr(kmod, "_cluster_fits", lambda *a: None)
+    gn, sidx, maf = _stacked(*_case(8, 100, seed=2))
+    fn, stem, pre, count = {
+        "rows": (kmod.pair_em_rows, "ngsld_pair_em_rows",
+                 (kmod.rows_threads(100),), "LAUNCHES_ROWS_CAP"),
+        "cluster": (kmod.pair_em_ichunk, "ngsld_pair_em_cluster",
+                    (kmod.ichunk_cluster(100),
+                     kmod.cluster_threads(100, kmod.ichunk_cluster(100))),
+                    "LAUNCHES_ICHUNK_CAP"),
+        "stream": (lambda *a, **k: kmod._pair_em_ichunk_stream(
+            *a, i_chunk=16, **k), "ngsld_pair_em_ichunk", (16,),
+            "LAUNCHES_ICHUNK_CAP")}[rung]
+    n0 = getattr(kmod, count)
+    fn(gn, sidx, maf, False)
+    fn(gn, sidx, maf, False, iter_cap=ITER_MAX)
+    assert calls == [(calls[0][0], stem, pre, (), None)] * 2
+    out = fn(gn, sidx, maf, False, iter_cap=16)
+    assert calls[-1][1:] == (stem + "_cap", pre, (16,), None)
+    assert out[0].dtype == gn.dtype
+    assert getattr(kmod, count) == n0 + 1
 
 
 # -------------------------------------------------- the strip options
@@ -481,6 +522,41 @@ def test_options_on_the_card(dtype):
         for a, b in zip(kmod.pair_em_phased(gn, sidx, maf, ign), one):
             _nan_equal(a, b) if a.dtype.kind == "f" else \
                 np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_and_ichunk_caps_on_the_card(dtype):
+    """The capped instances of pair_em_rows.cu and both bodies of
+    pair_em_ichunk.cu against their plain versions: nIter and n_used
+    exact (capped pairs at the cap), f to the table dtype's rounding; the
+    launch at ITER_MAX is the launch without a cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gn, sidx, maf = (t.cuda() for t in _stacked(*_case(300, 37, seed=4)))
+    gn, maf = gn.to(dtype), maf.to(dtype)
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    stream = lambda *a, **k: kmod._pair_em_ichunk_stream(  # noqa: E731
+        *a, i_chunk=16, **k)
+    for kern, plain in (
+            (kmod.pair_em_rows, kmod.pair_em_rows_ref),
+            (kmod.pair_em_ichunk, kmod.pair_em_ichunk_ref),
+            (stream, lambda *a, **k: kmod.pair_em_ichunk_ref(
+                *a, i_chunk=16, **k))):
+        for ign in (False, True):
+            for cap in (1, 16, ITER_MAX):
+                k_out = [t.cpu().numpy() for t in kern(gn, sidx, maf, ign,
+                                                       iter_cap=cap)]
+                p_out = [t.cpu().numpy() for t in plain(gn, sidx, maf, ign,
+                                                        iter_cap=cap)]
+                np.testing.assert_array_equal(k_out[1], p_out[1])
+                np.testing.assert_array_equal(k_out[2], p_out[2])
+                assert k_out[1].max() <= cap
+                _near(k_out[0], p_out[0], tol)
+            one = [t.cpu().numpy() for t in kern(gn, sidx, maf, ign)]
+            for a, b in zip(one, k_out):
+                _nan_equal(a, b) if a.dtype.kind == "f" else \
+                    np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.gpu

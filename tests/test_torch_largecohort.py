@@ -9,7 +9,11 @@ Tolerances against the JAX package (its kernels run the EM in f32, the
 port's in f64): n_used exact, hap freqs within 3e-5, nIter within 1 on more
 than 95% of pairs (98% of cells for the strip), r2p within 2e-5. Between
 two plain versions of the port (both f64, another summation order): nIter
-exact, f within 1e-6. The CUDA kernels themselves are compared with their
+exact, f within 1e-6. The rows and ichunk kernels' iteration cap: the JAX
+kernels test it once every pallas_em._UNROLL iterations, so there a pair
+still running at the cap runs on to the next multiple of _UNROLL; the
+port's capped plain version is held against them through its own run to
+that multiple (_hold_capped). The CUDA kernels themselves are compared with their
 plain versions in the `gpu`-marked tests and by chip_smoke.py on the card.
 """
 
@@ -80,36 +84,84 @@ def _hold_pairs(t_out, j_out, it_share=0.95):
     assert (np.abs(tn - jn) <= 1).mean() > it_share
 
 
+def _hold_capped(t_out, j_out, t_c4, cap):
+    """The port's plain version capped at `cap` (t_out) against the JAX
+    kernel capped at `cap` (j_out), through t_c4, the port's plain version
+    capped at c4 = cap rounded up to a multiple of pallas_em._UNROLL, where
+    the JAX kernel's loop stops. The port: pairs that stopped before the cap
+    are the c4 run's bit for bit, the others stop at the cap with f there.
+    The JAX kernel: the c4 run under the contract, a pair still running at
+    c4 keeping n_iter == cap as the kernel reports it."""
+    c4 = -(-cap // jem._UNROLL) * jem._UNROLL
+    tf, tn, tu = (x.numpy() for x in t_out)
+    cf, cn, cu = (x.numpy() for x in t_c4)
+    np.testing.assert_array_equal(tu, cu)
+    before = cn < cap
+    np.testing.assert_array_equal(tn, np.where(before, cn, cap))
+    np.testing.assert_array_equal(np.isnan(tf[before]), np.isnan(cf[before]))
+    np.testing.assert_array_equal(np.nan_to_num(tf[before]),
+                                  np.nan_to_num(cf[before]))
+    mapped = np.where(cn == c4, cap, cn).astype(np.int32)
+    _hold_pairs((torch.from_numpy(cf), torch.from_numpy(mapped),
+                 torch.from_numpy(cu)), j_out)
+
+
+_ROWS_CASES = [pytest.param(40, 12, ITER_MAX, id="40-12"),
+               pytest.param(16, 300, ITER_MAX, id="16-300")] + [
+    pytest.param(40, 12, cap, id=f"40-12-cap{cap}") for cap in (1, 16, 99)]
+
+
 @pytest.mark.parametrize("ignore_miss", [False, True])
-@pytest.mark.parametrize("n_pairs,n_ind", [(40, 12), (16, 300)])
-def test_pair_em_rows_ref_vs_jax_rows_kernel(n_pairs, n_ind, ignore_miss):
+@pytest.mark.parametrize("n_pairs,n_ind,cap", _ROWS_CASES)
+def test_pair_em_rows_ref_vs_jax_rows_kernel(n_pairs, n_ind, cap,
+                                             ignore_miss):
     j_args, t_args = _case(n_pairs, n_ind, seed=7 * n_pairs + n_ind)
-    t_out = kmod.pair_em_rows_ref(*t_args, ignore_miss)
+    t_out = kmod.pair_em_rows_ref(*t_args, ignore_miss, iter_cap=cap)
     assert t_out[0].dtype == torch.float32 and t_out[1].dtype == torch.int32
-    _hold_pairs(t_out, jem.pair_em_rows_from_gl(
-        *j_args, ignore_miss, pair_tile=8, interpret=True))
-    _hold_pairs(t_out, j_pair_em(*j_args, ignore_miss))
+    j_out = jem.pair_em_rows_from_gl(*j_args, ignore_miss, pair_tile=8,
+                                     interpret=True, iter_cap=cap)
+    if cap == ITER_MAX:
+        _hold_pairs(t_out, j_out)
+        _hold_pairs(t_out, j_pair_em(*j_args, ignore_miss))
+    else:
+        c4 = -(-cap // jem._UNROLL) * jem._UNROLL
+        _hold_capped(t_out, j_out, kmod.pair_em_rows_ref(
+            *t_args, ignore_miss, iter_cap=c4), cap)
     # CPU tensors: the wrapper is its plain version, and launches nothing
     n0 = kmod.LAUNCHES_ROWS
-    for a, b in zip(kmod.pair_em_rows(*t_args, ignore_miss), t_out):
+    for a, b in zip(kmod.pair_em_rows(*t_args, ignore_miss, iter_cap=cap),
+                    t_out):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert kmod.LAUNCHES_ROWS == n0
 
 
+_ICHUNK_CASES = [pytest.param(24, 40, 16, ITER_MAX, id="24-40-16"),
+                 pytest.param(60, 100, 32, ITER_MAX, id="60-100-32")] + [
+    pytest.param(24, 40, 16, cap, id=f"24-40-16-cap{cap}")
+    for cap in (1, 16, 99)]
+
+
 @pytest.mark.parametrize("ignore_miss", [False, True])
-@pytest.mark.parametrize("n_pairs,n_ind,ic", [(24, 40, 16), (60, 100, 32)])
-def test_pair_em_ichunk_ref_vs_jax_ichunk_kernel(n_pairs, n_ind, ic,
+@pytest.mark.parametrize("n_pairs,n_ind,ic,cap", _ICHUNK_CASES)
+def test_pair_em_ichunk_ref_vs_jax_ichunk_kernel(n_pairs, n_ind, ic, cap,
                                                  ignore_miss):
     """Cohorts that span several chunks, the last one partial."""
     j_args, t_args = _case(n_pairs, n_ind, seed=7 * n_pairs + n_ind)
     assert n_ind % ic
-    t_out = kmod.pair_em_ichunk_ref(*t_args, ignore_miss, i_chunk=ic)
-    _hold_pairs(t_out, jem.pair_em_ichunk(
-        *j_args, ignore_miss, pair_tile=8, i_chunk=ic, interpret=True))
-    _hold_pairs(t_out, j_pair_em(*j_args, ignore_miss))
+    t_out = kmod.pair_em_ichunk_ref(*t_args, ignore_miss, i_chunk=ic,
+                                    iter_cap=cap)
+    j_out = jem.pair_em_ichunk(*j_args, ignore_miss, pair_tile=8,
+                               i_chunk=ic, interpret=True, iter_cap=cap)
+    if cap == ITER_MAX:
+        _hold_pairs(t_out, j_out)
+        _hold_pairs(t_out, j_pair_em(*j_args, ignore_miss))
+    else:
+        c4 = -(-cap // jem._UNROLL) * jem._UNROLL
+        _hold_capped(t_out, j_out, kmod.pair_em_ichunk_ref(
+            *t_args, ignore_miss, i_chunk=ic, iter_cap=c4), cap)
     n0 = kmod.LAUNCHES_ICHUNK
-    for a, b in zip(kmod.pair_em_ichunk(*t_args, ignore_miss, i_chunk=ic),
-                    t_out):
+    for a, b in zip(kmod.pair_em_ichunk(*t_args, ignore_miss, i_chunk=ic,
+                                        iter_cap=cap), t_out):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert kmod.LAUNCHES_ICHUNK == n0
 
