@@ -17,6 +17,8 @@
                                          # phases 1, 2, 3, 11
     python3 chip_smoke.py --overlap-only # the overlap ingest: phases 1,
                                          # 2, 12
+    python3 chip_smoke.py --dryrun-only  # the graft entry points: phases
+                                         # 1, 2, 13
 
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
@@ -130,19 +132,20 @@ Phases, each printing its result and seconds on its own line:
      checkpoint whose later sub-ring was deleted (byte-equal), and the
      narrow-band auto-route (byte-equal to the block run)
   8. the host-side remainder: --profile DIR on phase 5's 10,000 x 100
-     gather leg (pair_em.cu), the 25k x 100 strip leg (strip_em.cu) and
+     gather leg (pair_em.cu), the same 10,000 sites through the strip
+     sweep (strip_em.cu) and
      phase 4's fixture through --ring (strip_em.cu once a step), each run
      four times in turns (without, with, with, without the flag): rows
      byte-equal, the same launches, each trace one Chrome trace holding
      one device event of the kernel per launch; walls, trace bytes; the
      gather leg also as two new processes of the CLI, without and with
      the flag (the process's first profiler). Then the port's tools on the
-     gather leg's TSV, each timed: prune (r2, --max_kb_dist 10,
-     --min_weight 0.5; no kept pair within 10 kb at or above 0.5),
-     fit_decay --n_ind 100 on its first fifth of rows (a finite fit),
-     ld_blocks.extract_region over 50 kb (against a scan of the rows),
-     merge of the TSV cut into five shards (byte-equal). Last, extras/: the HMM's forward, backward,
-     posterior and viterbi at 100 x 20,000 x 2 on the card in f64 against
+     gather leg's TSV, each timed: on its first fifth of rows prune (r2,
+     --max_kb_dist 10, --min_weight 0.5; no kept pair within 10 kb at or
+     above 0.5), fit_decay --n_ind 100 (a finite fit) and
+     ld_blocks.extract_region over 50 kb (against a scan of the rows);
+     merge of the whole TSV cut into five shards (byte-equal). Last, extras/: the HMM's forward, backward,
+     posterior and viterbi at 100 x 5,000 x 2 on the card in f64 against
      the CPU in f64 (tolerances printed; paths equal), and findmax_torch
      on the card
   9. the block engine on two ranks that share the card (device
@@ -212,6 +215,20 @@ Phases, each printing its result and seconds on its own line:
      table (slabs of 1 to 1,000 sites) at 100 and 20,000 individuals,
      byte-equal, and phase 5b's sampled 2,048 x 20,000 file in slabs of
      409 sites (the last of 3) with and without the overlap, byte-equal
+  13. the graft entry points of the port (ngsld_tpu_torch/graft_entry.py,
+     the counterparts of __graft_entry__.py) on the card: 13a entry()'s
+     step on its 256 x 32 example block, its EM one launch of pair_em.cu,
+     against pair_em_gather_ref on the card (nIter and n_used exact, f
+     within 1e-6) and against the same step on the CPU in f64 (the
+     reference's contract: hap freqs 3e-5, n_used exact, nIter within 1
+     on more than 95%, r2p 2e-5); 13b dryrun_multichip(2) and 13c
+     dryrun_multichip(4), the ranks spawned by the call and sharing the
+     card over gloo, every check of the JAX dry run on every rank (the
+     ('pairs', 'ind') sweep step, the all-steps ring sweep, the gather
+     stepper's step, advance and compaction, the strip stepper on
+     strip_em.cu, the ('sites', 'ind') stepper, the strip chunk over the
+     ranks on strip_em.cu and over ('pairs', 'ind')); the wall and each
+     rank's launches
 
 Then one JSON line of per-kernel results and, last, the `ok` line. Any
 failure exits non-zero without those lines; so does a machine without a
@@ -1977,13 +1994,8 @@ def _zero_launches():
 
 
 def _read_launches():
-    from ngsld_tpu_torch.kernels import pair_em as pmod
-    from ngsld_tpu_torch.kernels import strip_em as smod
-    return dict(pair_em=pmod.LAUNCHES, strip_em=smod.LAUNCHES,
-                pair_em_rows=pmod.LAUNCHES_ROWS,
-                pair_em_ichunk=pmod.LAUNCHES_ICHUNK,
-                pair_em_ichunk_stream=pmod.LAUNCHES_ICHUNK_STREAM,
-                strip_em_stream=smod.LAUNCHES_STREAM)
+    from ngsld_tpu_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000, pairs=False):
@@ -2775,7 +2787,8 @@ PRUNE_KB, PRUNE_W = 10, 0.5      # prune: --max_kb_dist, --min_weight (r2)
 REGION_BP = 50_000               # ld_blocks.extract_region's region
 N_PARTS = 5                      # merge: the TSV cut into this many shards
 FIT_SHARE = 0.2                  # fit_decay: this share of the TSV's rows
-HMM_B, HMM_L = 100, 20_000       # the HMM cell: sequences x sites, 2 states
+# the HMM cell: sequences x sites, 2 states (at 20,000 sites it took 17 s)
+HMM_B, HMM_L = 100, 5_000
 # the HMM on the card in f64 against the CPU in f64: values within
 # HMM_REL * max(|x|, 1), posterior probabilities within HMM_POST
 HMM_REL, HMM_POST = 1e-9, 1e-6
@@ -2901,9 +2914,17 @@ def _tools(tsv, d):
     """The port's four tools on a TSV the card wrote, each timed: prune's
     kept set against the invariant of tests/test_tools.py:62 (no kept pair
     within the distance at or above the weight), a finite decay fit,
-    extract_region against a scan of the same rows, and merge of the TSV
-    cut into shards byte-equal to the whole."""
+    extract_region against a scan of the same rows (these three on the
+    TSV's first FIT_SHARE of rows), and merge of the whole TSV cut into
+    shards byte-equal to the whole."""
     from ngsld_tpu_torch.tools import fit_decay, ld_blocks, merge, prune
+    # the first FIT_SHARE of the TSV's bytes, cut at a row's end: fit_decay's
+    # row parse took 24.5 s of the whole file, prune and extract_region 7 s
+    whole, tsv = tsv, os.path.join(d, "head.ld")
+    with open(whole, "rb") as src, open(tsv, "wb") as dst:
+        part = src.read(int(os.path.getsize(whole) * FIT_SHARE))
+        dst.write(part[:part.rindex(b"\n") + 1])
+    del part
     kept_path = os.path.join(d, "kept.txt")
     (rc, _), t_prune = _timed(lambda: _quiet(lambda: prune.main([
         "--input", tsv, "--max_kb_dist", str(PRUNE_KB), "--min_weight",
@@ -2938,21 +2959,14 @@ def _tools(tsv, d):
     if rc != 0 or not kept or not kept <= sites:
         raise AssertionError(f"prune rc {rc}, {len(kept)} kept")
     print(f"  prune (r2, --max_kb_dist {PRUNE_KB}, --min_weight {PRUNE_W}) "
-          f"on the whole TSV ({n_rows} rows, {len(sites)} sites): kept "
+          f"on the TSV's first {FIT_SHARE} ({n_rows} rows, {len(sites)} "
+          f"sites): kept "
           f"{len(kept)}; none of the {n_edges} pairs within {PRUNE_KB} kb "
           f"at or above the weight has both ends kept; {t_prune:.3f} s")
 
-    # the decay fit on the TSV's first FIT_SHARE of rows: its row parse
-    # took 24.5 s of the whole file (PR 8), cut to keep the run's time
-    head = os.path.join(d, "fit_head.ld")
-    with open(tsv, "rb") as src, open(head, "wb") as dst:
-        for k, ln in enumerate(src):
-            if k > n_rows * FIT_SHARE:
-                break
-            dst.write(ln)
     lst = os.path.join(d, "ld_files.txt")
     with open(lst, "w") as fh:
-        fh.write(head + "\n")
+        fh.write(tsv + "\n")
     (rc, text), t_fit = _timed(lambda: _quiet(lambda: fit_decay.main([
         "--ld_files", lst, "--ld", "r2", "--n_ind", str(REAL_I),
         "--fit_level", "3", "--seed", "1"])))
@@ -2960,8 +2974,7 @@ def _tools(tsv, d):
     fit = dict(zip(hdr.split("\t"), row.split("\t")))
     if rc != 0 or not np.isfinite(float(fit["DecayRate"])):
         raise AssertionError(f"fit_decay rc {rc}: {text}")
-    print(f"  fit_decay --n_ind {REAL_I} on the TSV's first {FIT_SHARE} of "
-          f"rows: DecayRate {fit['DecayRate']}, LDmax {fit['LDmax']}, LDmin "
+    print(f"  fit_decay --n_ind {REAL_I} on the same rows: DecayRate {fit['DecayRate']}, LDmax {fit['LDmax']}, LDmin "
           f"{fit['LDmin']}; {t_fit:.3f} s")
 
     (pos, dp, r2), t_reg = _timed(
@@ -2976,7 +2989,7 @@ def _tools(tsv, d):
           f"{n_fin} finite r2 cells = the region's rows; {t_reg:.3f} s")
 
     stem = os.path.join(d, "parts.ld")
-    with open(tsv, "rb") as fh:
+    with open(whole, "rb") as fh:
         lines = fh.readlines()
     cut = np.linspace(0, len(lines), N_PARTS + 1).astype(int)
     for k in range(N_PARTS):
@@ -2986,7 +2999,7 @@ def _tools(tsv, d):
     merged = os.path.join(d, "merged.ld")
     (rc, _), t_merge = _timed(lambda: _quiet(
         lambda: merge.main(["--out", merged, "--delete-parts", stem])))
-    if rc != 0 or _sha256(merged) != _sha256(tsv):
+    if rc != 0 or _sha256(merged) != _sha256(whole):
         raise AssertionError(f"merge rc {rc}: not byte-equal to the TSV")
     print(f"  merge of {N_PARTS} shards: byte-equal to the TSV "
           f"({os.path.getsize(merged)} bytes); {t_merge:.3f} s")
@@ -3060,8 +3073,6 @@ def phase_profile_tools(tmp, card, real):
     the rows the card wrote, and extras/ on the card."""
     d = os.path.join(tmp, "phase8")
     os.makedirs(d, exist_ok=True)
-    strip_argv = real["argv"][:real["argv"].index("--verbose")] + [
-        "--verbose", "0"]
     files = _slice_files(tmp)
     ring_argv = ["--geno", files["beagle"], "--probs", "--n_ind", "24",
                  "--n_sites", "2000", "--pos", files["pos"], "--max_kb_dist",
@@ -3072,8 +3083,10 @@ def phase_profile_tools(tmp, card, real):
                                    "pair_em_kernel", NGSLD_BLOCK_STRIP="0")
     _fresh_pair(card, real["gather_argv"], d, "pair_em_kernel",
                 launches["pair_em"], tsv, NGSLD_BLOCK_STRIP="0")
-    _profiled_pair(card, strip_argv, d, "strip 25k x 100", "strip_em",
-                   "strip_em_kernel", NGSLD_BLOCK_STRIP=None)
+    # the strip leg on the gather leg's 10,000 sites (four runs of the
+    # 25k x 100 leg took 29 s)
+    _profiled_pair(card, real["gather_argv"], d, "strip 10,000 x 100",
+                   "strip_em", "strip_em_kernel", NGSLD_BLOCK_STRIP="1")
     _profiled_pair(card, ring_argv, d, "ring 24 x 2,000", "strip_em",
                    "strip_em_kernel")
     _tools(tsv, d)
@@ -4236,6 +4249,94 @@ def phase_overlap(tmp, card, large=None):
     return report
 
 
+# ---------------------------------------------------------------- phase 13
+
+# 13a: entry()'s step against the CPU f64 step, the reference's contract
+GRAFT_F, GRAFT_R2P = 3e-5, 2e-5
+
+
+def _graft_step(card):
+    """13a: entry()'s step on the card, its EM through pair_em.cu (one
+    launch), against pair_em_gather_ref on the card (the kernel contract)
+    and against the same step on the CPU in f64 (the reference's
+    contract). Returns its launches."""
+    import torch
+    from ngsld_tpu_torch import graft_entry
+    from ngsld_tpu_torch.kernels import pair_em as pmod
+    step, args = graft_entry.entry()
+    if not all(a.is_cuda and a.dtype == torch.float32 for a in args):
+        raise AssertionError("13a: the example block is not f32 on the card")
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    if launches != dict(_NO_LAUNCHES, pair_em=1):
+        raise AssertionError(f"13a: launches {launches}; expected one of "
+                             "pair_em.cu")
+    gn, sidx, maf = graft_entry.stacked(args[0], args[1], args[4], args[5])
+    f_p, it_p, nu_p = pmod.pair_em_gather_ref(gn, sidx, maf, False)
+    _zero_launches()
+    err = float((out[1] - f_p).abs().max())
+    if not (torch.equal(out[2], it_p) and torch.equal(out[3], nu_p)
+            and err <= F32_TOL):
+        raise AssertionError(f"13a: against pair_em_gather_ref: f {err:.3e}"
+                             f" or nIter/n_used differ")
+    cpu_step, _ = graft_entry.entry(device="cpu")
+    ref = cpu_step(*(a.cpu().double() for a in args))
+    f_err = float((out[1].cpu().double() - ref[1]).abs().max())
+    r_err = float((out[0].cpu().double() - ref[0]).abs().max())
+    close = float(((out[2].cpu().long() - ref[2].long()).abs() <= 1)
+                  .double().mean())
+    if not (f_err <= GRAFT_F and r_err <= GRAFT_R2P and close > 0.95
+            and torch.equal(out[3].cpu(), ref[3])):
+        raise AssertionError(f"13a: against the CPU f64 step: f {f_err:.3e}"
+                             f", r2p {r_err:.3e}, nIter within 1 on "
+                             f"{close:.4f}, or n_used differs")
+    if not all(torch.isfinite(o).any() for o in out):
+        raise AssertionError("13a: an output without a finite value")
+    print(f"  13a entry() on the card: 256 pairs x 32, pair_em.cu 1 launch; "
+          f"against pair_em_gather_ref: nIter, n_used equal, f {err:.3e} "
+          f"(<= {F32_TOL}); against the CPU f64 step: f {f_err:.3e} (<= "
+          f"{GRAFT_F}), r2p {r_err:.3e} (<= {GRAFT_R2P}), nIter within 1 on "
+          f"{close:.4f}, n_used equal; step {wall:.4f} s [{card}]")
+    return launches
+
+
+def _graft_dryrun(n, card):
+    """13b/13c: dryrun_multichip(n) on the card, the ranks sharing it
+    (gloo): every check passes on every rank, strip_em.cu launched on
+    each; its wall and each rank's launches."""
+    from ngsld_tpu_torch import graft_entry
+    out = graft_entry.dryrun_multichip(n)
+    lc = out["launches"]
+    if out["backend"] != "gloo" or len(lc) != n:
+        raise AssertionError(f"dry run on {n}: backend {out['backend']}, "
+                             f"{len(lc)} ranks reported")
+    for r, c in enumerate(lc):
+        if c["strip_em"] < 1 or c["pair_em_rows"] + c["pair_em"] < 1:
+            raise AssertionError(f"dry run on {n}: rank {r} launches {c}")
+    print(f"  dryrun_multichip({n}): ('pairs', 'ind') = {out['layout']}, "
+          f"{n} ranks sharing the card over {out['backend']}; DRYRUN_OK; "
+          f"wall {out['seconds']:.3f} s (the ranks' own "
+          + ", ".join(f"{s:.3f}" for s in out["rank_seconds"]) + " s); "
+          f"launches a rank " + json.dumps(lc) + f" [{card}]")
+    return lc
+
+
+def phase_graft(card):
+    """Phase 13: the graft entry points of the port on the card (13a
+    entry(), 13b dryrun_multichip(2), 13c dryrun_multichip(4)). Returns
+    each kernel's launches: 13a's, and a list a rank for 13b and 13c."""
+    one = _graft_step(card)
+    two = _graft_dryrun(2, card)
+    four = _graft_dryrun(4, card)
+    return {k: {"13a": one[k], "13b": [c[k] for c in two],
+                "13c": [c[k] for c in four]} for k in _NO_LAUNCHES}
+
+
 def main(argv=()) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4282,6 +4383,16 @@ def main(argv=()) -> int:
             _phase(results, "12 overlap ingest on the card",
                    lambda: phase_overlap(tmp, card))
         print("chip_smoke --overlap-only: "
+              + ("PASS" if all(results) else "FAILED"))
+        return 0 if all(results) else 1
+    if "--dryrun-only" in argv:
+        # the graft entry points alone: build, phase 13; prints neither the
+        # kernels line nor the ok line
+        card = _phase(results, "1 environment", phase_env)
+        _phase(results, "2 build", phase_build)
+        _phase(results, "13 the graft entry points on the card",
+               lambda: phase_graft(card))
+        print("chip_smoke --dryrun-only: "
               + ("PASS" if all(results) else "FAILED"))
         return 0 if all(results) else 1
     if "--kernels-only" in argv:
@@ -4360,6 +4471,8 @@ def main(argv=()) -> int:
                       lambda: phase_options(card, rep, big))
         _phase(results, "12 overlap ingest on the card",
                lambda: phase_overlap(tmp, card, large))
+        graft = _phase(results, "13 the graft entry points on the card",
+                       lambda: phase_graft(card))
     if not all(results):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
@@ -4382,7 +4495,8 @@ def main(argv=()) -> int:
     # ring_mesh_launches: its launches a rank (rank 0, rank 1) over phase
     # 10's runs on two ranks; options_launches: the launches of its option
     # instance (pair_em.cu's cap, warm start and eps; strip_em.cu's eps;
-    # the rows and ichunk kernels' cap) in phase 11
+    # the rows and ichunk kernels' cap) in phase 11; graft_launches: its
+    # launches in phase 13 (13a's, then one a rank for 13b and for 13c)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ngsld_tpu_torch/csrc/{src}",
@@ -4390,6 +4504,7 @@ def main(argv=()) -> int:
          **{k: m[k] for k in keys}, "library_ms": None,
          "ring_launches": ring["acc"][_RING_COUNT[name]],
          "ring_mesh_launches": [lc[_RING_COUNT[name]] for lc in mesh_ring],
+         "graft_launches": graft[_RING_COUNT[name]],
          **({"options_launches": opts["launches"][_RING_COUNT[name]]}
             if _RING_COUNT[name] in opts["launches"] else {})}
         for name, src, tpu, launches, m in rows]}))

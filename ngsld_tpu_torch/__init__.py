@@ -11,3 +11,8 @@ imports neither jax nor anything of ngsld_tpu.
 """
 
 __version__ = "0.1.0"
+
+from .ops import vecmath
+
+# the process's first vector-math calls, on one thread (ops/vecmath.py)
+vecmath.ready()

@@ -267,18 +267,32 @@ def connect(rank: int, world: int, shard: int, shard_ind: int,
     kw = {"store": store} if store is not None else {"init_method": "env://"}
     dist.init_process_group(backend, rank=rank, world_size=world,
                             timeout=_timeout(), **kw)
-    m = Mesh(rank, world, shard, shard_ind, device, backend, shared,
-             local_world)
+    return _with_groups(Mesh(rank, world, shard, shard_ind, device,
+                             backend, shared, local_world))
+
+
+def _with_groups(m: Mesh) -> Mesh:
+    """m with its groups made on the current process group: the gloo host
+    group and, with shard_ind > 1, one 'ind' group a 'pairs' row. Every
+    rank creates every group, in the same order."""
     m.host_group = dist.new_group(backend="gloo", timeout=_timeout())
-    if shard_ind > 1:
-        # every rank creates every row's group, in the same order
-        for p in range(shard):
-            g = dist.new_group(ranks=list(range(p * shard_ind,
-                                                (p + 1) * shard_ind)),
+    if m.shard_ind > 1:
+        for p in range(m.shard):
+            g = dist.new_group(ranks=list(range(p * m.shard_ind,
+                                                (p + 1) * m.shard_ind)),
                                timeout=_timeout())
             if p == m.pi:
                 m.ind_group = g
     return m
+
+
+def submesh(m: Mesh, shard: int, shard_ind: int) -> Mesh:
+    """Another shard x shard_ind layout of m's ranks on the same process
+    group (one init_process_group a process): new groups, the device and
+    backend of m. Every rank calls this, in the same order."""
+    assert shard * shard_ind == m.world, (shard, shard_ind, m.world)
+    return _with_groups(Mesh(m.rank, m.world, shard, shard_ind, m.device,
+                             m.backend, m.shared, m.local_world))
 
 
 def teardown() -> None:
@@ -286,21 +300,19 @@ def teardown() -> None:
         dist.destroy_process_group()
 
 
-def _rank_entry(rank: int, world: int, port: int, job: dict) -> None:
-    """Entry of a self-started rank (a spawned process): join rank 0's
-    store, then run this rank's part of the run (the block engine, or the
-    ring) on its device. Only rank 0 writes to the run's output; an
-    exception exits the process non-zero."""
+def rank_main(rank: int, world: int, port: int, job: dict, shard: int,
+              shard_ind: int, run) -> None:
+    """The body of a self-started rank (a spawned process): join rank 0's
+    store and group on the shard x shard_ind mesh, then run(m) on this
+    rank's device. An exception is recorded in the store for rank 0 and
+    exits the process non-zero."""
     torch.set_num_threads(job["threads"])
-    from ..engine import _run_rank   # the engine imports this module
-    pars = job["pars"]
     device = rank_device(job["cpu"], rank)
     store = dist.TCPStore(HOST, port, world, False, timeout=_timeout())
     store.set(_READY + str(rank), "1")
-    m = connect(rank, world, pars.shard, pars.shard_ind, device, world,
-                store)
+    m = connect(rank, world, shard, shard_ind, device, world, store)
     try:
-        _run_rank(pars, None, job["prec"], device, m)
+        run(m)
     except BaseException as e:
         # before the group closes: rank 0 sees the closed connections only
         # after this, and names this rank's error, not its own
@@ -308,6 +320,19 @@ def _rank_entry(rank: int, world: int, port: int, job: dict) -> None:
         raise
     finally:
         teardown()
+
+
+def _rank_entry(rank: int, world: int, port: int, job: dict) -> None:
+    """Entry of a self-started rank of a run: this rank's part of the run
+    (the block engine, or the ring) on its device. Only rank 0 writes to
+    the run's output."""
+    pars = job["pars"]
+
+    def run(m):
+        from ..engine import _run_rank   # the engine imports this module
+        _run_rank(pars, None, job["prec"], m.device, m)
+
+    rank_main(rank, world, port, job, pars.shard, pars.shard_ind, run)
 
 
 class _Watcher:
@@ -341,16 +366,18 @@ class _Watcher:
 
 
 @contextlib.contextmanager
-def start_ranks(pars, prec: str, device: torch.device):
-    """Rank 0 of a run started without a launcher: serve a store on a free
-    port (the OS picks it: parallel runs cannot collide), spawn ranks
-    1..N-1 with this process's torch thread count, join the group, and
-    yield rank 0's Mesh. On exit every rank has ended: joined after a
-    clean run, ended otherwise. A rank that exited non-zero fails the run
+def spawn_ranks(world: int, device: torch.device, entry, job: dict):
+    """Rank 0's side of a self-started world: serve a store on a free port
+    (the OS picks it: parallel runs cannot collide), spawn ranks 1..N-1
+    as entry(rank, world, port, job) (a module-level function, which
+    calls rank_main), wait until every rank has reached the store, and
+    yield the store, which rank 0 then joins the group through. `job`
+    gains the ranks' torch thread count ("threads") and whether they run
+    on the CPU ("cpu"). On exit every rank has ended: joined after a clean
+    exit, ended otherwise. A rank that exited non-zero fails the call
     (StrictError naming it), even where rank 0's own error came first."""
     from ..strict import StrictError
     import torch.multiprocessing as mp
-    world = pars.shard * pars.shard_ind
     store = dist.TCPStore(HOST, 0, world, True, timeout=_timeout(),
                           wait_for_workers=False)
     # on the CPU the ranks share the caller's threads (N ranks of torch's
@@ -359,10 +386,9 @@ def start_ranks(pars, prec: str, device: torch.device):
     threads = torch.get_num_threads()
     if device.type == "cpu":
         threads = max(1, threads // world)
-    job = dict(pars=pars, prec=prec, cpu=device.type == "cpu",
-               threads=threads)
+    job = dict(job, cpu=device.type == "cpu", threads=threads)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_entry, args=(r, world, store.port, job),
+    procs = [ctx.Process(target=entry, args=(r, world, store.port, job),
                          name=f"ngsld-rank{r}") for r in range(1, world)]
     for p in procs:
         p.start()
@@ -379,12 +405,7 @@ def start_ranks(pars, prec: str, device: torch.device):
                 if watch.failed or time.monotonic() > deadline:
                     raise RuntimeError(f"rank {r} did not start")
                 time.sleep(0.02)
-        m = connect(0, world, pars.shard, pars.shard_ind, device, world,
-                    store)
-        try:
-            yield m
-        finally:
-            teardown()
+        yield store
     except BaseException as e:
         watch.stop()
         failed = [(r, store.get(_FAILED + str(r)).decode())
@@ -414,3 +435,19 @@ def start_ranks(pars, prec: str, device: torch.device):
                               f"{bad[0][1]}")
     finally:
         torch.set_num_threads(own_threads)
+
+
+@contextlib.contextmanager
+def start_ranks(pars, prec: str, device: torch.device):
+    """Rank 0 of a run started without a launcher: spawn ranks 1..N-1
+    (spawn_ranks, each running _rank_entry), join the group, and yield
+    rank 0's Mesh."""
+    world = pars.shard * pars.shard_ind
+    with spawn_ranks(world, device, _rank_entry,
+                     dict(pars=pars, prec=prec)) as store:
+        m = connect(0, world, pars.shard, pars.shard_ind, device, world,
+                    store)
+        try:
+            yield m
+        finally:
+            teardown()

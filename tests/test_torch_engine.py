@@ -7,6 +7,7 @@ port does not implement yet, and refusing to run on the CPU unasked."""
 
 import glob
 import io
+import json
 import os
 import re
 import subprocess
@@ -180,6 +181,55 @@ def test_cli_runs_with_jax_blocked(fixdir, tmp_path, monkeypatch, mode):
     with open(out) as fh:
         rows = fh.read().splitlines()
     assert rows == in_proc and len(rows) > 100
+
+
+# torch runs exp, log and sqrt on CPU tensors in chunks of this many
+# elements a thread (MKL's vector math); a call on fewer runs on the
+# calling thread
+_VECTOR_MATH_GRAIN = 2048
+
+
+def test_first_vector_math_call_runs_on_one_thread(fixdir, tmp_path):
+    """F4's guard. On CPU tensors torch's exp, log and sqrt call MKL's
+    vector math, a chunk of at least _VECTOR_MATH_GRAIN elements a
+    thread; the process's first such call, run on several threads at
+    once, can compute one thread's chunk at a lower accuracy
+    (ops/vecmath.py), and the port's MAF then came out low on that
+    chunk's sites, so that test_cli_runs_with_jax_blocked's new process
+    printed other bytes now and then. Here a new process runs the CLI
+    with every exp, log and sqrt on a CPU tensor recorded: the first of
+    each function and dtype must run below the grain, on the calling
+    thread alone. Without the first calls that the package makes when
+    imported (ops/vecmath.ready), the first exp was preprocess's over the
+    whole 250 x 10 x 3 table."""
+    rec = tmp_path / "first.json"
+    argv = _argv(fixdir, ["--max_kb_dist", "10", "--min_maf", "0.05",
+                          "--precision", "f32"])
+    code = ("import json, sys, torch\n"
+            "first = {}\n"
+            "def recorded(name, fn):\n"
+            "    def call(x, *a, **k):\n"
+            "        if isinstance(x, torch.Tensor) and x.device.type == "
+            "'cpu':\n"
+            "            first.setdefault(f'{name} {x.dtype}', x.numel())\n"
+            "        return fn(x, *a, **k)\n"
+            "    return call\n"
+            "torch.exp = recorded('exp', torch.exp)\n"
+            "torch.log = recorded('log', torch.log)\n"
+            "torch.sqrt = recorded('sqrt', torch.sqrt)\n"
+            "from ngsld_tpu_torch.cli import main\n"
+            f"rc = main({argv + ['--out', str(tmp_path / 'x.ld')]!r})\n"
+            f"json.dump(first, open({str(rec)!r}, 'w'))\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=REPO, NGSLD_BLOCK_STRIP="0")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=REPO, env=env)
+    assert r.returncode == 0, r.stderr
+    with open(rec) as fh:
+        first = json.load(fh)
+    assert {"exp torch.float32", "log torch.float32",
+            "sqrt torch.float32"} <= set(first), first
+    assert all(n < _VECTOR_MATH_GRAIN for n in first.values()), first
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
