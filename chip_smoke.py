@@ -4067,11 +4067,14 @@ def _with_and_without(argv, path, n_pairs, want, label, card):
                                  f"expected {expect}")
         runs[mode] = (wall, tim, sink, sha, err)
         st = tim["stages"]
+        # the end of the first dispatch span, from the run's start
+        first = next((sp[4] for sp in tim["spans"]
+                      if sp[0] == "sweep: dispatch"), 0) / 1e6
         print(f"  {label}, {'with' if on else 'without'} the overlap: "
               f"wall {wall:.3f} s, "
               f"{n_pairs / wall:.4e} pairs/s; ingest wait "
               f"{st.get('sweep: ingest wait', 0):.3f} s, start to first "
-              f"dispatch {st.get('sweep: to first dispatch', 0):.3f} s, "
+              f"dispatch {first:.3f} s, "
               f"slabs {tim['counters'].get('ingest_slabs', '-')} [{card}]")
         print("    phases: " + json.dumps(tim["phases"]))
         print("    stages: " + json.dumps(st))

@@ -12,7 +12,10 @@ imports neither jax nor anything of ngsld_tpu.
 
 __version__ = "0.1.0"
 
-from .ops import vecmath
+from .utils.logging import PROCESS
 
-# the process's first vector-math calls, on one thread (ops/vecmath.py)
-vecmath.ready()
+with PROCESS.span("init: import"):
+    from .ops import vecmath
+
+    # the process's first vector-math calls, on one thread (ops/vecmath.py)
+    vecmath.ready()

@@ -30,7 +30,8 @@ several nodes (torchrun --nnodes, LOCAL_WORLD_SIZE < WORLD_SIZE) writes
 one OUT.partNNNNN a site block instead, which tools.merge joins.
 
 --profile DIR records the run with torch.profiler (CPU activity, plus
-CUDA activity on the card; no shapes, no stacks) from the resolved device
+CUDA activity on the card, and every thread's RunLog spans where torch
+can profile all threads; no shapes, no stacks) from the resolved device
 to the end of the run, also one that raises, and writes it into DIR as
 one Chrome trace a rank under tensorboard_trace_handler's naming
 (<host>_<pid>.<time_ns>.pt.trace.json), which TensorBoard and Perfetto
@@ -48,6 +49,7 @@ import torch
 from .config import Params
 from .engine_block import _run_torch_body
 from .engine_ring import RingNarrowBand, _run_torch_ring
+from .kernels import launch_counts
 from .parallel import mesh
 from .strict import StrictError
 from .utils.logging import RunLog, echo_config
@@ -103,8 +105,19 @@ def _start_profile(trace_dir: str, device: torch.device):
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    # every thread's spans (RunLog's record_function ranges: the loaders',
+    # the ingest's, the emit's), where this torch can; else the main
+    # thread's alone
+    extra = {}
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        extra["experimental_config"] = _ExperimentalConfig(
+            profile_all_threads=True)
+    except (ImportError, TypeError):
+        pass
     prof = profile(activities=acts,
-                   on_trace_ready=tensorboard_trace_handler(trace_dir))
+                   on_trace_ready=tensorboard_trace_handler(trace_dir),
+                   **extra)
     prof.start()
     return prof
 
@@ -112,9 +125,11 @@ def _start_profile(trace_dir: str, device: torch.device):
 def _run_rank(pars: Params, out_fh, prec: str, device: torch.device,
               m=None) -> None:
     """One rank's run (the whole run on one device): log, --profile, the
-    output (rank 0 only) and the sweep."""
+    output (rank 0 only), the sweep and the timings (RunLog.summary, with
+    the run's kernel launches by name)."""
     rank = 0 if m is None else m.rank
     log = RunLog(pars.verbose, rank=rank)
+    launches = launch_counts()
     if pars.verbose >= 1 and rank == 0:
         echo_config(pars, f"(torch, {device}, {prec})")
     if m is not None:
@@ -166,6 +181,10 @@ def _run_rank(pars: Params, out_fh, prec: str, device: torch.device,
                 _run_torch_body(pars, out_fh, log, prec, device, m)
         else:
             _run_torch_body(pars, out_fh, log, prec, device, m)
+        for k, n in launch_counts().items():
+            if n > launches[k]:
+                log.count(f"launch:{k}", n - launches[k])
+        log.summary()
     finally:
         if close:
             out_fh.close()

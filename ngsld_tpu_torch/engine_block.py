@@ -43,7 +43,6 @@ import math
 import os
 import queue
 import threading
-import time
 
 import numpy as np
 import torch
@@ -102,12 +101,13 @@ def _load(pars, log, prec: str, device: torch.device, get_refiner,
     if _StreamedGLLoader.applicable(pars):
         # binary input: file slabs stream to the device while the positions
         # parse below; normalisation happens on the device
-        loader = _StreamedGLLoader(pars, np_dt, device, stream_np=overlap)
+        loader = _StreamedGLLoader(pars, np_dt, device, stream_np=overlap,
+                                   log=log)
         raw_gl = True
     elif _StreamedTextLoader.applicable(pars):
         # gz-text input: native line parsing streams to the device the same
         # way; records arrive already log-normalised
-        loader = _StreamedTextLoader(pars, np_dt, device)
+        loader = _StreamedTextLoader(pars, np_dt, device, log=log)
     else:
         with log.phase("Reading data from file"):
             geno_log = strict.read_geno(pars.in_geno, pars.in_bin,
@@ -129,9 +129,11 @@ def _load(pars, log, prec: str, device: torch.device, get_refiner,
         call_thresh=pars.call_thresh, ignore_miss_data=pars.ignore_miss_data,
         raw=raw_gl, in_log=pars.in_logscale)
     if overlap:
-        ingest = _OverlapIngest(
-            loader, pars, torch.float64 if prec == "f64" else torch.float32,
-            pre, device)
+        with log.span("ingest: tables"):   # allocated on the device
+            ingest = _OverlapIngest(
+                loader, pars,
+                torch.float64 if prec == "f64" else torch.float32, pre,
+                device, log)
         log.count("gl_streamed")
         log.count("overlap_ingest")
         log.log(2, "==> overlap ingest: GL upload + preprocess run under "
@@ -139,7 +141,8 @@ def _load(pars, log, prec: str, device: torch.device, get_refiner,
         # knife_edge_sites is empty at min_maf <= 0, and the gate rules out
         # the verbose-7 echo of the tables
         return ingest.tables + (ingest.maf_host, pos_dist, labels, ingest)
-    with log.phase("Preprocessing (call_geno, MAF, E[G]) on device"):
+    with log.phase("Preprocessing (call_geno, MAF, E[G]) on device",
+                   encloses=True):
         if loader is not None:
             with log.phase("  gl stream+upload", level=2):
                 gl_d = loader.join()
@@ -229,7 +232,6 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
     """The block sweep on one device, or this rank's part of it on a mesh
     (m, parallel.mesh.Mesh): rank 0 loads, formats and writes; every rank
     walks the same plan and computes its share of each block or chunk."""
-    t_run = time.perf_counter()
     lead = m is None or m.rank == 0
     refiner = None
 
@@ -244,7 +246,7 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
             else (None,) * 7)
     gn_d, maf_d, eg_d, maf, pos_dist, labels, ingest = tabs
     try:
-        _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner,
+        _sweep(pars, out_fh, log, prec, device, m, get_refiner,
                gn_d, maf_d, eg_d, maf, pos_dist, labels, ingest)
     except BaseException:
         if ingest is not None and ingest.failed and not pars.checkpoint:
@@ -263,10 +265,9 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
     if refiner is not None:
         for k, v in sorted(refiner.t.items()):
             log.count_time(f"sweep: fmt/refine/{k}", v)
-    log.summary()
 
 
-def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
+def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
            maf_d, eg_d, maf, pos_dist, labels, ingest):
     """_run_torch_body's sweep over rank 0's tables (shared with the other
     ranks here), or over the overlap ingest's as they fill."""
@@ -296,18 +297,20 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
     strip_mode = False
     strip_env = os.environ.get("NGSLD_BLOCK_STRIP")
     if strip_env != "0" and prec == "f32":
-        hi_b = band_limits(pos_dist, pars.max_kb_dist, pars.max_snp_dist)
-        ok_b = ~(maf_plan < pars.min_maf)
-        # padded to whole anchor tiles; pad sites are not ok. (The TPU
-        # engine adds one more all-dead partner tile to aim the padding
-        # slots of a fixed-size dispatch at; here a dispatch launches
-        # exactly its chunk's tiles.)
-        Sp_b = -(-pars.n_sites // TA) * TA
-        hi_p = np.zeros(Sp_b, np.int64)
-        hi_p[:pars.n_sites] = hi_b
-        ok_p = np.zeros(Sp_b, np.float32)
-        ok_p[:pars.n_sites] = ok_b
-        s_ta, s_tb, _, s_util = strip_plan(hi_p, ok_p, pars.n_sites, TA, TB)
+        with log.span("plan: strip plan"):
+            hi_b = band_limits(pos_dist, pars.max_kb_dist, pars.max_snp_dist)
+            ok_b = ~(maf_plan < pars.min_maf)
+            # padded to whole anchor tiles; pad sites are not ok. (The TPU
+            # engine adds one more all-dead partner tile to aim the padding
+            # slots of a fixed-size dispatch at; here a dispatch launches
+            # exactly its chunk's tiles.)
+            Sp_b = -(-pars.n_sites // TA) * TA
+            hi_p = np.zeros(Sp_b, np.int64)
+            hi_p[:pars.n_sites] = hi_b
+            ok_p = np.zeros(Sp_b, np.float32)
+            ok_p[:pars.n_sites] = ok_b
+            s_ta, s_tb, _, s_util = strip_plan(hi_p, ok_p, pars.n_sites, TA,
+                                               TB)
         u_eff = s_util * pars.rnd_sample
         min_util = float(os.environ.get("NGSLD_STRIP_MIN_UTIL", "0.08"))
         strip_mode = len(s_ta) > 0 and (
@@ -418,12 +421,11 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
         here as a numpy take. On a mesh (spec: each 'pairs' row's sending
         rank, rows and their places) the other rows' pieces arrive here,
         each from the first rank of its row, and join rank 0's own."""
-        t0 = time.perf_counter()
-        fm = dev_out[0].cpu().numpy()
-        im = dev_out[1].cpu().numpy()
-        if flat_sel is not None:
-            fm, im = fm[flat_sel], im[flat_sel]
-        log.count_time("sweep: result pull", time.perf_counter() - t0)
+        with log.span("sweep: result pull"):
+            fm = dev_out[0].cpu().numpy()
+            im = dev_out[1].cpu().numpy()
+            if flat_sel is not None:
+                fm, im = fm[flat_sel], im[flat_sel]
         if spec is not None:
             fm, im = _assemble(m, fm, im, spec)
         return bi, blk, fm, im, meta
@@ -467,21 +469,28 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
                 blk = PairBlock(s1=blk.s1[order], s2=blk.s2[order],
                                 dist=blk.dist[order])
                 fm, im = fm[order], im[order]
-        t0 = time.perf_counter()
-        n_iter = im[:, 0].astype(np.int32)
-        if im.shape[1] > 1:
-            n_used = im[:, 1].astype(np.int32)
-        else:
-            # slim layout (compute._imat): every pair used the whole cohort
-            n_used = np.full(im.shape[0], pars.n_ind, np.int32)
-            im = np.column_stack([n_iter, n_used])
-        log.count("em_iterations", int(n_iter.astype(np.int64).sum()))
-        if pars.verbose >= 2:
-            log.hist("em_iteration_histogram",
-                     np.bincount(np.clip(n_iter, 0, 100)))
-        tiers = degenerate_tiers(fm[:, 1:5], prec)
-        t1, t2 = tiers == 1, tiers == 2
-        log.count_time("sweep: fmt/tiers", time.perf_counter() - t0)
+        with log.span("sweep: format"):
+            data = format_rows(blk, fm, im)
+        return bi, data, span0
+
+    def format_rows(blk, fm, im):
+        """fmt's derive and format of a block's (or merged group's) rows
+        -> the rows' bytes."""
+        with log.span("sweep: fmt/tiers"):
+            n_iter = im[:, 0].astype(np.int32)
+            if im.shape[1] > 1:
+                n_used = im[:, 1].astype(np.int32)
+            else:
+                # slim layout (compute._imat): every pair used the whole
+                # cohort
+                n_used = np.full(im.shape[0], pars.n_ind, np.int32)
+                im = np.column_stack([n_iter, n_used])
+            log.count("em_iterations", int(n_iter.astype(np.int64).sum()))
+            if pars.verbose >= 2:
+                log.hist("em_iteration_histogram",
+                         np.bincount(np.clip(n_iter, 0, 100)))
+            tiers = degenerate_tiers(fm[:, 1:5], prec)
+            t1, t2 = tiers == 1, tiers == 2
         data = None
         if tiers.any():
             log.count("pairs_refined", int(t1.sum()))
@@ -497,54 +506,51 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
                 s1s, s2s, dists = blk.s1, blk.s2, blk.dist
                 fms, ims = fm, im
                 t1s, t2s = t1, t2
-            tu = time.perf_counter()
-            r2p, f, n_iter64, n_used64, hmaf0, hmaf1, D, Dp, r2, chi2 \
-                = _unpack(fms, ims, pars.extend_out)
-            cols = dict(      # copies: fm-backed views are read-only
-                r2p=np.array(r2p, np.float64),
-                f=np.array(f, np.float64),
-                hmaf1=np.array(hmaf0, np.float64),
-                hmaf2=np.array(hmaf1, np.float64),
-                D=np.array(D, np.float64),
-                Dp=np.array(Dp, np.float64),
-                r2=np.array(r2, np.float64),
-                chi2=np.array(chi2, np.float32),
-                maf1=maf[s1s].copy(), maf2=maf[s2s].copy(),
-                n_iter=np.array(n_iter64, np.int32),
-                n_used=np.array(n_used64, np.int32))
-            log.count_time("sweep: fmt/unpack", time.perf_counter() - tu)
+            with log.span("sweep: fmt/unpack"):
+                r2p, f, n_iter64, n_used64, hmaf0, hmaf1, D, Dp, r2, chi2 \
+                    = _unpack(fms, ims, pars.extend_out)
+                cols = dict(      # copies: fm-backed views are read-only
+                    r2p=np.array(r2p, np.float64),
+                    f=np.array(f, np.float64),
+                    hmaf1=np.array(hmaf0, np.float64),
+                    hmaf2=np.array(hmaf1, np.float64),
+                    D=np.array(D, np.float64),
+                    Dp=np.array(Dp, np.float64),
+                    r2=np.array(r2, np.float64),
+                    chi2=np.array(chi2, np.float32),
+                    maf1=maf[s1s].copy(), maf2=maf[s2s].copy(),
+                    n_iter=np.array(n_iter64, np.int32),
+                    n_used=np.array(n_used64, np.int32))
             if t2s.any():
-                tp = time.perf_counter()
-                pol = derive_columns_f64(cols["f"][t2s])
-                for k in pol:
-                    cols[k][t2s] = pol[k]
-                log.count_time("sweep: fmt/rederive",
-                               time.perf_counter() - tp)
+                with log.span("sweep: fmt/rederive"):
+                    pol = derive_columns_f64(cols["f"][t2s])
+                    for k in pol:
+                        cols[k][t2s] = pol[k]
             if t1s.any():
-                tr = time.perf_counter()
-                ref = get_refiner().refine_columns(s1s[t1s], s2s[t1s])
-                for k in cols:
-                    cols[k][t1s] = ref[k]
-                log.count_time("sweep: fmt/refine", time.perf_counter() - tr)
-            tf = time.perf_counter()
+                with log.span("sweep: fmt/refine"):
+                    ref = get_refiner().refine_columns(s1s[t1s], s2s[t1s])
+                    for k in cols:
+                        cols[k][t1s] = ref[k]
             if use_native:
-                data = format_rows_derive(
-                    fmt_rw.blob, fmt_rw.off, blk.s1, blk.s2, blk.dist,
-                    fm[:, 0], fm[:, 1:5], maf[blk.s1], maf[blk.s2], n_used,
-                    n_iter, pars.extend_out, overrides=(idx, cols))
-                if data is None:
-                    # only reachable on an fm dtype mismatch — a code bug
-                    raise RuntimeError(
-                        "native derive formatter rejected the chunk")
-                log.count_time("sweep: fmt/bulk", time.perf_counter() - tf)
+                with log.span("sweep: fmt/bulk"):
+                    data = format_rows_derive(
+                        fmt_rw.blob, fmt_rw.off, blk.s1, blk.s2, blk.dist,
+                        fm[:, 0], fm[:, 1:5], maf[blk.s1], maf[blk.s2],
+                        n_used, n_iter, pars.extend_out,
+                        overrides=(idx, cols))
+                    if data is None:
+                        # only reachable on an fm dtype mismatch — a code
+                        # bug
+                        raise RuntimeError(
+                            "native derive formatter rejected the chunk")
             else:
-                data = fmt_rw.format_block(
-                    s1s, s2s, dists, cols["r2p"], cols["D"], cols["Dp"],
-                    cols["r2"], n_used=cols["n_used"], maf1=cols["maf1"],
-                    maf2=cols["maf2"], hap=cols["f"], hmaf1=cols["hmaf1"],
-                    hmaf2=cols["hmaf2"], chi2=cols["chi2"],
-                    n_iter=cols["n_iter"])
-                log.count_time("sweep: fmt/rows", time.perf_counter() - tf)
+                with log.span("sweep: fmt/rows"):
+                    data = fmt_rw.format_block(
+                        s1s, s2s, dists, cols["r2p"], cols["D"], cols["Dp"],
+                        cols["r2"], n_used=cols["n_used"], maf1=cols["maf1"],
+                        maf2=cols["maf2"], hap=cols["f"], hmaf1=cols["hmaf1"],
+                        hmaf2=cols["hmaf2"], chi2=cols["chi2"],
+                        n_iter=cols["n_iter"])
         elif fmt_rw.native:
             # single native pass: D/D'/r2/hap-MAFs/chi2 derive inside the
             # formatter's worker threads from (r2p, f) directly
@@ -560,8 +566,7 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
                 n_used=n_used64.astype(np.int32), maf1=maf[blk.s1],
                 maf2=maf[blk.s2], hap=f, hmaf1=hmaf0, hmaf2=hmaf1,
                 chi2=chi2, n_iter=n_iter64.astype(np.int32))
-        log.count_time("sweep: format", time.perf_counter() - t0)
-        return bi, data, span0
+        return data
 
     def write(bi, data, span0=None):
         """Stage 3 (disk IO): write rows, or commit a checkpoint shard.
@@ -570,22 +575,21 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
         commits empty placeholder shards for the run's earlier bis
         (concatenate needs a dense block range; resume treats
         done(final_bi) as group-done and re-ensures placeholders)."""
-        t0 = time.perf_counter()
-        if ckpt is not None:
-            with ckpt.open_block(bi) as bfh:
-                bfh.write(data)
-            ckpt.commit_block(bi)
-            if span0 is not None:
-                for j in range(span0, bi):
-                    with ckpt.open_block(j):
-                        pass
-                    ckpt.commit_block(j)
-        else:
-            try:
-                out_fh.write(data)
-            except TypeError:
-                out_fh.write(data.decode())
-        log.count_time("sweep: write", time.perf_counter() - t0)
+        with log.span("sweep: write"):
+            if ckpt is not None:
+                with ckpt.open_block(bi) as bfh:
+                    bfh.write(data)
+                ckpt.commit_block(bi)
+                if span0 is not None:
+                    for j in range(span0, bi):
+                        with ckpt.open_block(j):
+                            pass
+                        ckpt.commit_block(j)
+            else:
+                try:
+                    out_fh.write(data)
+                except TypeError:
+                    out_fh.write(data.decode())
 
     # 3-stage emit pipeline on daemon threads (pull, fmt, write); FIFO
     # queues keep rows in (s1, s2) order. The heavy parts (device wait,
@@ -633,14 +637,7 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
     n_blocks = 0
     interrupted = False
 
-    def first_dispatch():
-        """Stage `sweep: to first dispatch`: from the start of the run to
-        the end of the first block's or chunk's dispatch (the time the
-        device waits for the load before any sweep work)."""
-        if "sweep: to first dispatch" not in log.time_counters:
-            log.count_time("sweep: to first dispatch",
-                           time.perf_counter() - t_run)
-    with log.phase("compute: banded pair sweep"), \
+    with log.phase("compute: banded pair sweep", encloses=True), \
             (GracefulStop(log) if lead else _NoStop()) as gs:
         if strip_mode:
             use_i16 = pars.n_ind <= 32767
@@ -763,7 +760,8 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
             skip_until = -1   # resumed split-group fast-forward
             run_first = run_last = -1  # in-flight split-group span
             try:
-                for item in _prefetch_blocks(strip_chunks(), depth=2):
+                for item in _prefetch_blocks(
+                        log.spans_of("plan: block", strip_chunks()), depth=2):
                     ta_slots, tb_slots, sel, blk, rem = item
                     bi += 1
                     n_blocks = bi + 1
@@ -814,55 +812,51 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
                     # otherwise
                     use_flat = (strip_flat_fn is not None
                                 and P >= flat_util * gc * TA_TB)
-                    t0 = time.perf_counter()
-                    spec = None
-                    if m is not None:
-                        # this row's tiles and the cells of sel in them;
-                        # rank 0 puts every row's rows at their places
-                        shares = compute.strip_shares(gc, sel, n_shards)
-                        t_lo, t_hi, _, sel = shares[m.pi]
-                        ta_slots = ta_slots[t_lo:t_hi]
-                        tb_slots = tb_slots[t_lo:t_hi]
-                        spec = [(p * shard_ind, len(sh[2]), sh[2])
-                                for p, sh in enumerate(shares)]
-                        if shard_ind > 1:
-                            log.count("ind_strip_chunks")
-                    # exactly the chunk's tiles launch and, compacted,
-                    # exactly P rows come back (no padding to GMAXT tiles
-                    # or to a sel capacity)
-                    args = (s_ga, s_gb, s_ea, s_eb, s_maf, s_maf, s_lo, s_hi,
-                            s_ok, s_ok,
-                            torch.from_numpy(ta_slots).to(device),
-                            torch.from_numpy(tb_slots).to(device))
-                    if use_flat:
-                        dev_out = strip_flat_fn(*args)   # async
-                    else:
-                        dev_out = strip_fn(
-                            *args, torch.from_numpy(sel).to(device))
-                    log.count_time("sweep: dispatch",
-                                   time.perf_counter() - t0)
-                    first_dispatch()
-                    emit_q.put((bi, blk, dev_out, meta,
-                                sel if use_flat else None, spec))
+                    with log.span("sweep: dispatch"):
+                        spec = None
+                        if m is not None:
+                            # this row's tiles and the cells of sel in them;
+                            # rank 0 puts every row's rows at their places
+                            shares = compute.strip_shares(gc, sel, n_shards)
+                            t_lo, t_hi, _, sel = shares[m.pi]
+                            ta_slots = ta_slots[t_lo:t_hi]
+                            tb_slots = tb_slots[t_lo:t_hi]
+                            spec = [(p * shard_ind, len(sh[2]), sh[2])
+                                    for p, sh in enumerate(shares)]
+                            if shard_ind > 1:
+                                log.count("ind_strip_chunks")
+                        # exactly the chunk's tiles launch and, compacted,
+                        # exactly P rows come back (no padding to GMAXT tiles
+                        # or to a sel capacity)
+                        args = (s_ga, s_gb, s_ea, s_eb, s_maf, s_maf, s_lo,
+                                s_hi, s_ok, s_ok,
+                                torch.from_numpy(ta_slots).to(device),
+                                torch.from_numpy(tb_slots).to(device))
+                        if use_flat:
+                            dev_out = strip_flat_fn(*args)   # async
+                        else:
+                            dev_out = strip_fn(
+                                *args, torch.from_numpy(sel).to(device))
+                    with log.span("sweep: emit wait"):
+                        emit_q.put((bi, blk, dev_out, meta,
+                                    sel if use_flat else None, spec))
             finally:
-                emit_q.put(None)
-                for t in stages:
-                    t.join()
+                with log.span("sweep: emit wait"):
+                    emit_q.put(None)
+                    for t in stages:
+                        t.join()
             if emit_err:
                 raise emit_err[0]
         else:
-            blocks_it = enumerate(_prefetch_blocks(
-                iter_pair_blocks(pars, maf_plan, pos_dist,
-                                 block_pairs=chunk)))
+            blocks_it = enumerate(_prefetch_blocks(log.spans_of(
+                "plan: block", iter_pair_blocks(pars, maf_plan, pos_dist,
+                                                block_pairs=chunk))))
             try:
                 while True:
-                    t_top = time.perf_counter()
-                    try:
-                        bi, blk = next(blocks_it)
-                    except StopIteration:
+                    with log.span("sweep: plan wait"):
+                        bi, blk = next(blocks_it, (None, None))
+                    if blk is None:
                         break
-                    log.count_time("sweep: plan wait",
-                                   time.perf_counter() - t_top)
                     n_blocks = bi + 1
                     if gs.stopped or emit_err:
                         interrupted = not emit_err
@@ -880,47 +874,47 @@ def _sweep(pars, out_fh, log, prec, device, m, t_run, get_refiner, gn_d,
                                    f"{blk.s1[0]}..{blk.s1[-1]}, {P} pairs")
                     if ingest is not None:
                         # dispatch only once every site of the block is in
-                        tw = time.perf_counter()
-                        gn_d, maf_d, eg_d = ingest.wait(
-                            int(blk.s2.max()) + 1)
-                        log.count_time("sweep: ingest wait",
-                                       time.perf_counter() - tw)
-                    t0 = time.perf_counter()
-                    # this row's contiguous piece of the block (all of it
-                    # on one device)
-                    bnd = compute.split_bounds(P, n_shards)
-                    lo_p = bnd[0 if m is None else m.pi]
-                    hi_p = bnd[1 if m is None else m.pi + 1]
-                    spec = None if m is None else [
-                        (p * shard_ind, bnd[p + 1] - bnd[p], None)
-                        for p in range(n_shards)]
-                    # one fused (2, P) index upload per block; exactly P pairs
-                    # launch and P rows come back (no padding quantum)
-                    sidx = torch.from_numpy(np.stack(
-                        [blk.s1[lo_p:hi_p], blk.s2[lo_p:hi_p]]).astype(
-                            np.int32)).to(device)
-                    if shard_ind > 1:
-                        log.count("ind_blocks")
-                        dev_out = compute_block_ind(
-                            gn_d, eg_d, maf_d, sidx, pars.ignore_miss_data, m)
-                    else:
-                        # the ladder's rung for this piece, as compute_block
-                        # picks it
-                        log.count("rung_" + pick_gather_kernel(
-                            pars.n_ind, gn_d.element_size(), device,
-                            hi_p - lo_p))
-                        dev_out = compute.compute_block(
-                            gn_d, eg_d, maf_d, sidx,
-                            pars.ignore_miss_data)  # async
-                    log.count_time("sweep: dispatch", time.perf_counter() - t0)
-                    first_dispatch()
-                    emit_q.put((bi, blk, dev_out, None, None, spec))
+                        with log.span("sweep: ingest wait"):
+                            gn_d, maf_d, eg_d = ingest.wait(
+                                int(blk.s2.max()) + 1)
+                    with log.span("sweep: dispatch"):
+                        # this row's contiguous piece of the block (all of it
+                        # on one device)
+                        bnd = compute.split_bounds(P, n_shards)
+                        lo_p = bnd[0 if m is None else m.pi]
+                        hi_p = bnd[1 if m is None else m.pi + 1]
+                        spec = None if m is None else [
+                            (p * shard_ind, bnd[p + 1] - bnd[p], None)
+                            for p in range(n_shards)]
+                        # one fused (2, P) index upload per block; exactly P
+                        # pairs launch and P rows come back (no padding
+                        # quantum)
+                        sidx = torch.from_numpy(np.stack(
+                            [blk.s1[lo_p:hi_p], blk.s2[lo_p:hi_p]]).astype(
+                                np.int32)).to(device)
+                        if shard_ind > 1:
+                            log.count("ind_blocks")
+                            dev_out = compute_block_ind(
+                                gn_d, eg_d, maf_d, sidx, pars.ignore_miss_data,
+                                m)
+                        else:
+                            # the ladder's rung for this piece, as
+                            # compute_block picks it
+                            log.count("rung_" + pick_gather_kernel(
+                                pars.n_ind, gn_d.element_size(), device,
+                                hi_p - lo_p))
+                            dev_out = compute.compute_block(
+                                gn_d, eg_d, maf_d, sidx,
+                                pars.ignore_miss_data)  # async
+                    with log.span("sweep: emit wait"):
+                        emit_q.put((bi, blk, dev_out, None, None, spec))
             finally:
                 # always shut the pipeline down, even when the loop raises:
                 # stages blocked on get() would otherwise pin device buffers
-                emit_q.put(None)
-                for t in stages:
-                    t.join()
+                with log.span("sweep: emit wait"):
+                    emit_q.put(None)
+                    for t in stages:
+                        t.join()
             if emit_err:
                 raise emit_err[0]
 

@@ -9,7 +9,6 @@ import math
 import os
 import shutil
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -403,7 +402,8 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
 
         cuda = device.type == "cuda"
         interrupted = False
-        with log.phase("compute: ring sweep"), GracefulStop(log) as gs:
+        with log.phase("compute: ring sweep", encloses=True), \
+                GracefulStop(log) as gs:
             for si in range(n_sub):
                 if interrupted:
                     break
@@ -452,59 +452,57 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
                     # host mask pass: (a, pj) labels + live counts, and
                     # (when sampling) the packed membership bits the
                     # device ANDs into its own mask
-                    th = time.perf_counter()
-                    masks = {i: host_mask(i, si, t) for i in mask_blocks}
-                    bits = None
-                    if compact_cfg["sample"]:
-                        bits = torch.from_numpy(
-                            pack_bits(masks[me][1]).view(np.uint8)).to(device)
-                    log.count_time("ring: host mask",
-                                   time.perf_counter() - th)
-                    ts = time.perf_counter()
-                    if cuda:
-                        torch.cuda.reset_peak_memory_stats(device)
-                    if use_strip:
-                        res, *vis = stepper(
-                            ga_d, ea_d, hi_d, ok_d, maf_s, *vis, t, si, bits)
-                    else:
-                        res, *vis = stepper(
-                            gn_d, eg_d, maf_d, hi_d, ok_d, *vis, t, si, bits)
-                    fm_d, im_d, cnt = res
-                    if not use_strip:
-                        # the gather steppers' pieces (one kernel launch
-                        # each, or one --shard_ind step)
-                        log.count("ring_pieces", -(-cnt // pars.chunk_pairs))
-                    step_rows = {}
-                    for i in mask_blocks:
-                        valid, _ = masks[i]
-                        a_idx, pj_idx = np.nonzero(valid)
-                        live = len(a_idx)
-                        # device/host mask agreement: the device count
-                        # comes back with the rows
-                        if cnt != live:
-                            raise AssertionError(
-                                f"ring compact mismatch: device {cnt} vs "
-                                f"host {live} rows (block {i}, si {si}, "
-                                f"t {t})")
-                        if live == 0 or not owner:
-                            step_rows[i] = None
-                            continue
-                        fm = fm_d.cpu().numpy()
-                        im = im_d.cpu().numpy()
-                        # spill rows stay slim on disk: int32 labels,
-                        # n_iter as pulled, and NO n_used column when it
-                        # is the constant the merge synthesizes
-                        cols_i = dict(
-                            a=(i * B + a_idx).astype(np.int32),
-                            pj=((((i + t) % n_dev) * B + si * B_sub
-                                 + pj_idx).astype(np.int32)),
-                            r2p=fm[:, 0], f=fm[:, 1:5],
-                            n_iter=im[:, 0])
-                        if im.shape[1] > 1:
-                            cols_i["n_used"] = im[:, 1]
-                        step_rows[i] = cols_i
-                    del res, fm_d, im_d
-                    log.count_time("ring: steps", time.perf_counter() - ts)
+                    with log.span("ring: host mask"):
+                        masks = {i: host_mask(i, si, t) for i in mask_blocks}
+                        bits = None
+                        if compact_cfg["sample"]:
+                            bits = torch.from_numpy(pack_bits(
+                                masks[me][1]).view(np.uint8)).to(device)
+                    with log.span("ring: steps"):
+                        if cuda:
+                            torch.cuda.reset_peak_memory_stats(device)
+                        if use_strip:
+                            res, *vis = stepper(ga_d, ea_d, hi_d, ok_d,
+                                                maf_s, *vis, t, si, bits)
+                        else:
+                            res, *vis = stepper(gn_d, eg_d, maf_d, hi_d,
+                                                ok_d, *vis, t, si, bits)
+                        fm_d, im_d, cnt = res
+                        if not use_strip:
+                            # the gather steppers' pieces (one kernel launch
+                            # each, or one --shard_ind step)
+                            log.count("ring_pieces",
+                                      -(-cnt // pars.chunk_pairs))
+                        step_rows = {}
+                        for i in mask_blocks:
+                            valid, _ = masks[i]
+                            a_idx, pj_idx = np.nonzero(valid)
+                            live = len(a_idx)
+                            # device/host mask agreement: the device count
+                            # comes back with the rows
+                            if cnt != live:
+                                raise AssertionError(
+                                    f"ring compact mismatch: device {cnt} "
+                                    f"vs host {live} rows (block {i}, si "
+                                    f"{si}, t {t})")
+                            if live == 0 or not owner:
+                                step_rows[i] = None
+                                continue
+                            fm = fm_d.cpu().numpy()
+                            im = im_d.cpu().numpy()
+                            # spill rows stay slim on disk: int32 labels,
+                            # n_iter as pulled, and NO n_used column when
+                            # it is the constant the merge synthesizes
+                            cols_i = dict(
+                                a=(i * B + a_idx).astype(np.int32),
+                                pj=((((i + t) % n_dev) * B + si * B_sub
+                                     + pj_idx).astype(np.int32)),
+                                r2p=fm[:, 0], f=fm[:, 1:5],
+                                n_iter=im[:, 0])
+                            if im.shape[1] > 1:
+                                cols_i["n_used"] = im[:, 1]
+                            step_rows[i] = cols_i
+                        del res, fm_d, im_d
                     peak = ""
                     if cuda:
                         pk = torch.cuda.max_memory_allocated(device)
@@ -513,11 +511,11 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
                         peak = f", peak device memory {pk} bytes"
                     log.log(2, f"==> ring step (sub-ring {si}, t {t}): "
                                f"{cnt} rows{peak}")
-                    tw = time.perf_counter()
-                    # the block's other ranks commit the step too (a
-                    # marker with no rows): each rank resumes from its own
-                    spill.save_step(si, t, step_rows)
-                    log.count_time("ring: spill", time.perf_counter() - tw)
+                    with log.span("ring: spill"):
+                        # the block's other ranks commit the step too (a
+                        # marker with no rows): each rank resumes from its
+                        # own
+                        spill.save_step(si, t, step_rows)
                     del step_rows, masks
                     log.count("ring_steps")
 
@@ -655,7 +653,6 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
             # engine's keys: read/prep/cache/gather/pearson/em/stats)
             for k, v in sorted(refiner.t.items()):
                 log.count_time(f"emit: refine/{k}", v)
-        log.summary()
     finally:
         if part_path is not None:
             part_fh.close()

@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import threading
 
+from ..utils.logging import PROCESS
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
@@ -112,8 +114,16 @@ def build_libraries() -> dict:
     {name: library path}."""
     paths = {name: library_path(name) for name in sources()}
     missing = [n for n, so in paths.items() if not os.path.exists(so)]
+    PROCESS.count("kernel_libs_built", len(missing))
     if not missing:
         return paths
+    with PROCESS.span("init: kernel build"):
+        _compile(paths, missing)
+    return paths
+
+
+def _compile(paths: dict, missing: list) -> None:
+    """One nvcc process a missing library, started together."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -136,7 +146,6 @@ def build_libraries() -> dict:
             os.replace(tmp, paths[name])
     if errors:
         raise RuntimeError("ngsld_tpu_torch: " + "\n".join(errors))
-    return paths
 
 
 def get_library(name: str) -> ctypes.CDLL:
@@ -144,7 +153,9 @@ def get_library(name: str) -> ctypes.CDLL:
     its entry points."""
     with _LOCK:
         if name not in _LIBS:
-            lib = ctypes.CDLL(build_libraries()[name])
+            path = build_libraries()[name]
+            with PROCESS.span(f"init: kernel lib {name}"):
+                lib = ctypes.CDLL(path)
             for fn_name, argtypes in ENTRY_POINTS[name].items():
                 fn = getattr(lib, fn_name)
                 fn.restype = _i32

@@ -16,6 +16,8 @@ import threading
 
 import numpy as np
 
+from ..utils.logging import PROCESS
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ngsld_native.cpp")
 # build outputs live in the package's .build/ (with the CUDA kernels'),
@@ -46,7 +48,8 @@ def _build() -> str | None:
     for extra in (["-march=native", "-ffp-contract=off"], []):
         cmd = base[:1] + extra + base[1:]
         try:
-            subprocess.run(cmd, check=True, capture_output=True)
+            with PROCESS.span("init: native build"):
+                subprocess.run(cmd, check=True, capture_output=True)
             os.replace(tmp, so)
             return so
         except subprocess.CalledProcessError:
@@ -70,7 +73,8 @@ def get_lib():
         so = _build()
         if so is None:
             return None
-        lib = ctypes.CDLL(so)
+        with PROCESS.span("init: native lib"):
+            lib = ctypes.CDLL(so)
         i64 = ctypes.c_int64
         lib.ngsld_read_geno_text.restype = ctypes.c_int
         lib.ngsld_read_geno_text.argtypes = [
