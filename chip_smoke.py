@@ -23,7 +23,7 @@
 Phases, each printing its result and seconds on its own line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, whether the native host library loaded
-  2. build: the five CUDA kernels from csrc/, one nvcc per source, timed
+  2. build: the six CUDA kernels from csrc/, one nvcc per source, timed
   3. kernel vs plain on the card, each kernel against its plain PyTorch
      version: pair_em_gather at the gather path's 524,288-pair block x 100
      individuals (f32 and f64, --ignore_miss_data off and on, x = 0 pairs
@@ -214,7 +214,12 @@ Phases, each printing its result and seconds on its own line:
      output file empty; 12d the preprocess slab by slab against the whole
      table (slabs of 1 to 1,000 sites) at 100 and 20,000 individuals,
      byte-equal, and phase 5b's sampled 2,048 x 20,000 file in slabs of
-     409 sites (the last of 3) with and without the overlap, byte-equal
+     409 sites (the last of 3) with and without the overlap, byte-equal;
+     in every leg one gl_narrow launch a slab, with and without the
+     overlap; 12e the binary loader's kernel (gl_narrow.cu) on one slab of
+     the cohort cells' input, 1,051 x 10,640 x 3 doubles, narrowed to f32
+     and checked in f64, against its plain version (bit-equal, flags),
+     its time beside its bound and the plain version's
   13. the graft entry points of the port (ngsld_tpu_torch/graft_entry.py,
      the counterparts of __graft_entry__.py) on the card: 13a entry()'s
      step on its 256 x 32 example block, its EM one launch of pair_em.cu,
@@ -342,8 +347,8 @@ def phase_build():
         get_library(name)
     print(f"built {sorted(os.path.relpath(p) for p in paths.values())} in "
           f"{time.perf_counter() - t0:.3f} s")
-    if sorted(paths) != ["pair_em", "pair_em_ichunk", "pair_em_rows",
-                         "strip_em", "strip_em_stream"]:
+    if sorted(paths) != ["gl_narrow", "pair_em", "pair_em_ichunk",
+                         "pair_em_rows", "strip_em", "strip_em_stream"]:
         raise AssertionError(f"unexpected kernel sources: {sorted(paths)}")
 
 
@@ -1994,8 +1999,12 @@ def _zero_launches():
 
 
 def _read_launches():
+    """The EM kernels' launches: launch_counts() without gl_narrow, the
+    binary loader's kernel (one a slab, which phase 12 counts)."""
     from ngsld_tpu_torch.kernels import launch_counts
-    return launch_counts()
+    launches = launch_counts()
+    del launches["gl_narrow"]
+    return launches
 
 
 def _counted_run(argv, tmp, n_pairs, strip, n_keep=1000, pairs=False):
@@ -4016,6 +4025,9 @@ OVL_NAN_SLAB = 100 * OVL_I * 24
 # leg in slabs of 409 sites, the last of 3
 OVL_SLABS = (1, 7, 15, 16, 17, 100, 1000)
 OVL_BIG_SLAB_SITES = 409
+# 12e: one slab of the cohort cells' binary input as the loader cuts it
+# (2,048 sites x 10,640 individuals in 256 MB slabs: 1,051 sites a slab)
+NARROW_SLAB = (1_051, 10_640)
 
 
 def _tiled_sites(sim, copies):
@@ -4065,6 +4077,12 @@ def _with_and_without(argv, path, n_pairs, want, label, card):
         if launches != expect:
             raise AssertionError(f"{label} {mode}: launches {launches}, "
                                  f"expected {expect}")
+        # the binary loader's kernel: one launch a slab, either way
+        narrows = tim["counters"].get("launch:gl_narrow")
+        if narrows != (tim["counters"]["ingest_slabs"] if on else
+                       runs["overlap"][1]["counters"]["ingest_slabs"]):
+            raise AssertionError(f"{label} {mode}: {narrows} gl_narrow "
+                                 "launches, not one a slab")
         runs[mode] = (wall, tim, sink, sha, err)
         st = tim["stages"]
         # the end of the first dispatch span, from the run's start
@@ -4075,7 +4093,9 @@ def _with_and_without(argv, path, n_pairs, want, label, card):
               f"{n_pairs / wall:.4e} pairs/s; ingest wait "
               f"{st.get('sweep: ingest wait', 0):.3f} s, start to first "
               f"dispatch {first:.3f} s, "
-              f"slabs {tim['counters'].get('ingest_slabs', '-')} [{card}]")
+              f"slabs {tim['counters'].get('ingest_slabs', '-')}, gl_narrow "
+              f"launches {narrows}, load: read "
+              f"{st.get('load: read', 0):.3f} s [{card}]")
         print("    phases: " + json.dumps(tim["phases"]))
         print("    stages: " + json.dumps(st))
     if runs["overlap"][3] != runs["without"][3]:
@@ -4123,10 +4143,60 @@ def _slabwise_preprocess(card, dev):
     torch.cuda.synchronize()
 
 
+def _narrow_slab(card, dev):
+    """12e: csrc/gl_narrow.cu on one slab of raw log-scale doubles at
+    NARROW_SLAB, narrowed to f32 and checked in f64, against its plain
+    version (outputs bit-equal, both flags clear; three -infs in the last
+    record set both), its time (CUDA events, best of 10) beside its bound
+    and the plain version's time."""
+    import torch
+    from ngsld_tpu_torch.kernels import gl_narrow as gmod
+    k, m = NARROW_SLAB
+    gen = torch.Generator(device=dev).manual_seed(12)
+    raw = torch.rand((k, m, 3), dtype=torch.float64, device=dev,
+                     generator=gen).log_()
+    out = {}
+    for dtype, out_bytes in ((torch.float32, 12), (torch.float64, 0)):
+        name = str(dtype)[6:]
+        flags = [torch.zeros(1, dtype=torch.int32, device=dev)
+                 for _ in range(2)]
+        t_k, (got, f_k) = _time(lambda: (gmod.narrow_check(
+            raw, dtype, True, flags[0]), flags[0]), reps=10)
+        t_p, (want, f_p) = _time(lambda: (gmod.narrow_check_ref(
+            raw, dtype, True, flags[1]), flags[1]), reps=3)
+        if not (torch.equal(got, want) and int(f_k) == int(f_p) == 0):
+            raise AssertionError(f"12e {name}: the kernel differs from its "
+                                 f"plain version (flags {int(f_k)}, "
+                                 f"{int(f_p)})")
+        bound, side = _bound(k * m * (24 + out_bytes), 0)
+        print(f"  12e gl_narrow {name} on {k} x {m} x 3 doubles "
+              f"({k * m * 24} bytes): kernel {t_k:.4f} ms, bound "
+              f"{bound:.4f} ms ({side}; {100 * bound / t_k:.1f}% of it), "
+              f"plain version {t_p:.4f} ms; output bit-equal, flags "
+              f"clear [{card}]")
+        out[name] = dict(kernel_ms=t_k, bound_ms=bound, plain_ms=t_p)
+        del got, want
+    raw[-1, -1] = float("-inf")
+    for dtype in (torch.float32, torch.float64):
+        flags = [torch.zeros(1, dtype=torch.int32, device=dev)
+                 for _ in range(2)]
+        gmod.narrow_check(raw, dtype, True, flags[0])
+        gmod.narrow_check_ref(raw, dtype, True, flags[1])
+        if [int(f) for f in flags] != [1, 1]:
+            raise AssertionError(f"12e {dtype}: a last record of three "
+                                 f"-infs flagged {[int(f) for f in flags]}")
+    print("  12e: three -infs in the slab's last record set both flags, "
+          "f32 and f64")
+    del raw
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_overlap(tmp, card, large=None):
     """Phase 12: the overlap ingest on the card (12a the 1M-site sampled
     leg, 12b a dense leg through the strip sweep, 12c a NaN near the end,
-    12d 20,000 individuals)."""
+    12d 20,000 individuals, 12e the binary loader's kernel on one
+    slab)."""
     import types
 
     import torch
@@ -4172,8 +4242,9 @@ def phase_overlap(tmp, card, large=None):
           f"{runs['overlap'][3][:16]}), {n_rows} sampled rows within the "
           f"f32 contract of strict; wall {w_on:.3f} s with the overlap, "
           f"{w_off:.3f} s without (gl stream+upload {up:.3f} s, preprocess "
-          f"{pre:.3f} s there): the overlap hid {(w_off - w_on) / up:.4f} of "
-          f"the upload's seconds [{card}]")
+          f"{pre:.3f} s there; the first run also allocates the loader's "
+          f"pinned host slabs): with the overlap {w_off - w_on:.3f} s "
+          f"shorter [{card}]")
     report["12a"] = dict(wall_on=w_on, wall_off=w_off, upload=up,
                          pairs=n_pairs)
     os.remove(glf)
@@ -4249,6 +4320,8 @@ def phase_overlap(tmp, card, large=None):
         raise AssertionError(f"12d: {slabs} slabs")
     print(f"  12d: {sum(sizes_d)} rows, {slabs} slabs (the last of "
           f"{BIG_S % OVL_BIG_SLAB_SITES} sites), TSVs byte-equal [{card}]")
+    # ---- 12e: the binary loader's kernel on one main-path slab
+    report["12e"] = _narrow_slab(card, torch.device("cuda", 0))
     return report
 
 

@@ -77,6 +77,9 @@ ENTRY_POINTS = {
         "ngsld_strip_em_stream": [_vp] * 12 + [_i32, _i64, _i64] + [_i32] * 8
         + [_vp] * 5,
         "ngsld_strip_em_stream_smem": [_i32]},
+    "gl_narrow": {
+        "ngsld_gl_narrow_f32": [_vp, _vp, _i64, _i32, _vp, _vp],
+        "ngsld_gl_check_f64": [_vp, _i64, _i32, _vp, _vp]},
 }
 
 

@@ -9,10 +9,12 @@ Three streaming paths, all with the reference's exact read semantics
 
 Each replaces read -> f64 normalise -> f32 narrow -> one monolithic upload
 (three serial passes over the data) with a pipeline: a reader thread
-produces slabs at the engine's precision, an uploader thread copies each
-to the device, join() concatenates them there. On a CUDA device a slab
-crosses from pinned host memory with a non-blocking copy on a side stream;
-join() synchronises that stream before the table is handed over.
+produces slabs, an uploader thread copies each to the device, join()
+concatenates them there. On a CUDA device a slab crosses from pinned host
+memory with a non-blocking copy on a side stream; join() synchronises that
+stream before the table is handed over. The binary reader only reads: its
+raw doubles go to the device as they are, and the consumer narrows and
+checks them there (kernels/gl_narrow.py, one launch a slab).
 
 _OverlapIngest goes one step further for binary input: the binary loader
 in its streaming mode (stream_np=True: the reader thread only) feeds an
@@ -33,7 +35,22 @@ import numpy as np
 import torch
 
 from . import strict
+from .kernels.gl_narrow import narrow_check
 from .utils.logging import RunLog
+
+
+def _nan_error():
+    """The reference's error on a record that post_prob turns into a NaN
+    (read_data.cpp:44)."""
+    return strict.StrictError("read_geno",
+                              "NaN found! Is the file format correct?")
+
+
+def _eof_error():
+    """strict.read_geno's error on a file with fewer records than
+    n_sites."""
+    return strict.StrictError("read_geno", "GENO file at premature EOF. "
+                              "Check GENO file and number of sites!")
 
 
 class _SlabUploader:
@@ -41,7 +58,12 @@ class _SlabUploader:
     uploader thread, and join(); or, with stream_np=True, no uploader and
     the host slabs handed out by np_slabs(). log: the run's RunLog, which
     gets the threads' spans (load: read, parse, queue wait, upload) and
-    the GENO file's bytes as stored (counter load_bytes)."""
+    the GENO file's bytes as stored (counter load_bytes). A subclass that
+    sets _flag before this __init__ gets each device slab through
+    _arrived() and join() raises the reference's NaN error when the flag
+    is set."""
+
+    _flag = None
 
     def __init__(self, pars, np_dtype, device, name: str, stream_np=False,
                  log=None):
@@ -50,8 +72,11 @@ class _SlabUploader:
         self._dt = np_dtype
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
-        self._stream = (torch.cuda.Stream(self._device)
-                        if self._cuda and not stream_np else None)
+        self._stream = None
+        if self._cuda and not stream_np:
+            self._stream = torch.cuda.Stream(self._device)
+            # _flag's zeros are written on the caller's stream
+            self._stream.wait_stream(torch.cuda.current_stream(self._device))
         self._q = queue.Queue(maxsize=2)
         self._slabs = []    # device slabs, file order
         self._pinned = []   # host sides of copies still in flight
@@ -85,6 +110,11 @@ class _SlabUploader:
         with self._log.span("load: queue wait"):
             self._q.put(a)
 
+    def _arrived(self, t):
+        """A slab on the device, on the uploader's stream: what join()
+        concatenates."""
+        return t
+
     def _upload(self):
         try:
             while True:
@@ -92,18 +122,22 @@ class _SlabUploader:
                 if a is None:
                     return
                 with self._log.span("load: upload"):
-                    t = torch.from_numpy(a)
+                    if torch.is_tensor(a):   # pinned by the reader
+                        t = a
+                    else:
+                        t = torch.from_numpy(a)
+                        if self._cuda:
+                            t = t.pin_memory()
                     if self._cuda:
                         # the copy runs on the side stream while the reader
                         # fills the next slab; the pinned slab must outlive
                         # it
-                        t = t.pin_memory()
                         with torch.cuda.stream(self._stream):
-                            self._slabs.append(
-                                t.to(self._device, non_blocking=True))
+                            self._slabs.append(self._arrived(
+                                t.to(self._device, non_blocking=True)))
                         self._pinned.append(t)
                     else:
-                        self._slabs.append(t)
+                        self._slabs.append(self._arrived(t))
         except BaseException as e:
             self._err.append(e)
             # drain so the reader never blocks on a full queue
@@ -113,7 +147,7 @@ class _SlabUploader:
     def np_slabs(self):
         """stream_np mode: yield the host slabs in file order (the reader
         keeps at most 2 queued); raises the reader's error (the reference's
-        NaN and EOF semantics) after the stream ends."""
+        EOF semantics) after the stream ends."""
         while True:
             a = self._q.get()
             if a is None:
@@ -132,16 +166,19 @@ class _SlabUploader:
 
     def join(self) -> torch.Tensor:
         """The whole (n_sites, n_ind, 3) table on the device; raises the
-        reader's error (the reference's NaN and EOF semantics)."""
+        reference's NaN error when the flag is set, else the reader's or
+        the uploader's error (a bad record lies before any read error)."""
         self._reader.join()
         self._uploader.join()
-        if self._err:
-            raise self._err[0]
         if self._cuda:
             self._stream.synchronize()
             self._pinned.clear()
             # later work runs on the current stream
             torch.cuda.current_stream(self._device).wait_stream(self._stream)
+        if self._flag is not None and self._flag.item():
+            raise _nan_error()
+        if self._err:
+            raise self._err[0]
         self.n_slabs = len(self._slabs)
         out = (torch.cat(self._slabs, dim=0) if self.n_slabs > 1
                else self._slabs[0])
@@ -150,8 +187,13 @@ class _SlabUploader:
 
 
 class _StreamedGLLoader(_SlabUploader):
-    """Binary GL fast path: np.fromfile slabs in a reader thread, uploads in
-    an uploader thread, one device-side concatenate at join().
+    """Binary GL fast path: a reader thread reads slabs of raw doubles (on
+    a CUDA device straight into pinned host memory), an uploader thread
+    copies each to the device and narrows and checks it there
+    (narrow_check, on its stream), one device-side concatenate at join().
+    With stream_np the raw slabs go to np_slabs() instead (pinned torch
+    tensors on a CUDA device, numpy arrays on the CPU), and the consumer
+    (_OverlapIngest) narrows and checks them.
 
     The records arrive UNNORMALISED; normalisation moves into the device
     preprocess (ops.preprocess raw=True). Only used when the file size
@@ -159,8 +201,14 @@ class _StreamedGLLoader(_SlabUploader):
     strict.read_geno, which raises the reference's exact errors.
 
     NaN parity: the reference errors on NaN after post_prob
-    (read_data.cpp:44-45). Raw NaN inputs are checked per slab; all-(-inf)
-    log-scale records (which post_prob turns into NaN) are too.
+    (read_data.cpp:44-45). narrow_check flags, on the records narrowed to
+    the table's dtype: raw NaN; +inf anywhere (inf - inf in the
+    normalise); log-scale all-(-inf) records (-inf - -inf); linear-scale
+    negatives (log -> NaN). Linear zeros are FINE: conv_space clamps the
+    -inf to a finite -INF (gen_func.cpp:127-128). The one deviation: a
+    finite f64 > f32-max narrows to +inf and errors where the f64
+    reference would accept it; use --precision f64 for such
+    (pathological) inputs.
     """
 
     SLAB_BYTES = 256 << 20
@@ -176,7 +224,14 @@ class _StreamedGLLoader(_SlabUploader):
         return size == pars.n_sites * pars.n_ind * 3 * 8
 
     def __init__(self, pars, np_dtype, device, stream_np=False, log=None):
+        self._tdt = torch.from_numpy(np.empty(0, np_dtype)).dtype
+        if not stream_np:
+            # the run's bad-record flag, ORed by every slab's check
+            self._flag = torch.zeros(1, dtype=torch.int32, device=device)
         super().__init__(pars, np_dtype, device, "gl", stream_np, log)
+
+    def _arrived(self, t):
+        return narrow_check(t, self._tdt, self._pars.in_logscale, self._flag)
 
     def _read(self):
         p = self._pars
@@ -186,34 +241,23 @@ class _StreamedGLLoader(_SlabUploader):
         slab_bytes = int(os.environ.get("NGSLD_SLAB_BYTES", self.SLAB_BYTES))
         slab_sites = max(1, slab_bytes // (m * 3 * 8))
         span = self._log.span
-        with open(p.in_geno, "rb") as fh:
+        with open(p.in_geno, "rb", buffering=0) as fh:
             s = 0
             while s < n:
                 k = min(slab_sites, n - s)
                 with span("load: read"):
-                    a = np.fromfile(fh, dtype=np.float64, count=k * m * 3)
-                with span("load: parse"):
-                    a = a.reshape(k, m, 3).astype(self._dt, copy=False)
-                    # NaN parity checks on the NARROWED slab (half the
-                    # bytes), mirroring the reference's NaN-after-post_prob
-                    # error (read_data.cpp:42-45): raw NaN; +inf anywhere
-                    # (inf - inf in the normalise); log-scale all-(-inf)
-                    # records (-inf - -inf); linear-scale negatives (log ->
-                    # NaN). Linear zeros are FINE: conv_space clamps the
-                    # -inf to a finite -INF (gen_func.cpp:127-128). The one
-                    # deviation: a finite f64 > f32-max narrows to +inf and
-                    # errors here where the f64 reference would accept it;
-                    # use --precision f64 for such (pathological) inputs.
-                    bad = np.isnan(a).any() or np.isposinf(a).any()
-                    if not bad:
-                        if p.in_logscale:
-                            bad = np.isneginf(a).all(axis=-1).any()
-                        else:
-                            bad = bool((a < 0).any())
-                if bad:
-                    raise strict.StrictError(
-                        "read_geno", "NaN found! Is the file format correct?")
-                self._put(a)
+                    # torch's caching host allocator hands back the pinned
+                    # blocks of earlier slabs once their copies are done
+                    t = torch.empty((k, m, 3), dtype=torch.float64,
+                                    pin_memory=self._cuda)
+                    a = t.numpy()
+                    buf, got = memoryview(a).cast("B"), 0
+                    while got < len(buf):
+                        r = fh.readinto(buf[got:])
+                        if not r:
+                            raise _eof_error()
+                        got += r
+                self._put(t if self._cuda else a)
                 s += k
 
 
@@ -291,9 +335,7 @@ class _StreamedTextLoader(_SlabUploader):
                 if eof:
                     break
             if s < n:
-                raise strict.StrictError(
-                    "read_geno", "GENO file at premature EOF. "
-                    "Check GENO file and number of sites!")
+                raise _eof_error()
             if leftover or carry or fh.read(1):
                 raise strict.StrictError(
                     "read_geno", "GENO file not at EOF. "
@@ -373,8 +415,7 @@ def _ring_sharded_tables(pars, n_dev, B, Sp, np_dt, log, device, m=None,
                     bad = (np.isneginf(a).all(axis=-1).any()
                            if pars.in_logscale else bool((a < 0).any()))
                 if bad:
-                    raise strict.StrictError(
-                        "read_geno", "NaN found! Is the file format correct?")
+                    raise _nan_error()
                 put(s, a)
                 del a
                 s += cnt
@@ -420,9 +461,7 @@ def _ring_sharded_tables(pars, n_dev, B, Sp, np_dt, log, device, m=None,
                 if eof:
                     break
             if s < n:
-                raise strict.StrictError(
-                    "read_geno", "GENO file at premature EOF. "
-                    "Check GENO file and number of sites!")
+                raise _eof_error()
             if leftover or carry or fh.read(1):
                 raise strict.StrictError(
                     "read_geno", "GENO file not at EOF. "
@@ -447,15 +486,18 @@ class _OverlapIngest:
 
     The serial chain join() -> preprocess(whole table) -> sweep puts the
     whole host->device GL transfer before the first block. Here one ingest
-    thread takes the binary loader's host slabs (np_slabs(), file order),
-    and for each: pins it, copies it to the device with a non-blocking copy
-    on its own CUDA stream, runs the engine's preprocess (`pre`, raw=True)
-    on it there, writes the results into the slab's rows of full-size
-    device tables, and pulls the slab's MAF into maf_host as f64. That pull
-    waits for the slab's whole chain on the side stream; only after it does
-    the thread raise the coverage (sites resident) and wake the waiters, so
-    a sweep that has passed wait(need) launches on its own stream only
-    reads rows that are written. Each site's preprocess reads its own row
+    thread takes the binary loader's raw host slabs (np_slabs(), file
+    order; pinned by the reader on a CUDA device), and for each: copies it
+    to the device with a non-blocking copy on its own CUDA stream, narrows
+    and checks it there (narrow_check into the table's dtype, the run's
+    bad-record flag), runs the engine's preprocess (`pre`, raw=True) on it,
+    writes the results into the slab's rows of full-size device tables,
+    and pulls the slab's MAF into maf_host as f64 and the flag beside it.
+    That pull waits for the slab's whole chain on the side stream; only
+    after it, and only with the flag clear, does the thread raise the
+    coverage (sites resident) and wake the waiters, so a sweep that has
+    passed wait(need) launches on its own stream only reads rows that are
+    written, and never a site of a slab with a bad record. Each site's preprocess reads its own row
     alone (ops.preprocess.site_sum), so the tables are the monolithic
     preprocess's byte for byte.
 
@@ -479,6 +521,7 @@ class _OverlapIngest:
         self._log = log
         self._loader = loader
         self._pre = pre
+        self._in_log = pars.in_logscale
         self._n = n
         self.maf_host = np.zeros(n, np.float64)
         self.failed = False
@@ -507,26 +550,34 @@ class _OverlapIngest:
         try:
             with (torch.cuda.stream(self._stream) if self._stream is not None
                   else contextlib.nullcontext()):
+                # the bad-record flag, ORed by every slab's check, and its
+                # host copy
+                flag = torch.zeros(1, dtype=torch.int32, device=gn.device)
+                flag_h = torch.zeros(1, dtype=torch.int32,
+                                     pin_memory=self._stream is not None)
                 for slab in self._log.spans_of("ingest: slab wait",
                                                self._loader.np_slabs()):
                     if self._stop.is_set():
                         break
                     k = len(slab)
                     with span("ingest: upload"):
-                        t = torch.from_numpy(slab)
-                        if self._stream is not None:
-                            t = t.pin_memory().to(gn.device,
-                                                  non_blocking=True)
+                        t = (torch.from_numpy(slab)
+                             if isinstance(slab, np.ndarray)
+                             else slab.to(gn.device, non_blocking=True))
                     with span("ingest: preprocess"):
-                        gs, ms, es = self._pre(t)
+                        gs, ms, es = self._pre(
+                            narrow_check(t, gn.dtype, self._in_log, flag))
                         gn[off:off + k].copy_(gs)
                         maf[off:off + k].copy_(ms)
                         eg[off:off + k].copy_(es)
                     # the pull synchronises the side stream: every write
-                    # above has landed when it returns
+                    # above, and the flag's copy, has landed when it returns
                     with span("ingest: maf pull"):
+                        flag_h.copy_(flag, non_blocking=True)
                         self.maf_host[off:off + k] = ms.cpu().numpy()
                     del t, gs, ms, es
+                    if flag_h.item():
+                        raise _nan_error()
                     off += k
                     with self._cv:
                         self._cov = off
@@ -535,9 +586,7 @@ class _OverlapIngest:
             if self._stop.is_set():
                 self._loader.drain()
             elif off != self._n:   # the reader stopped early without raising
-                raise strict.StrictError(
-                    "read_geno", "GENO file at premature EOF. "
-                    "Check GENO file and number of sites!")
+                raise _eof_error()
         except BaseException as e:
             with self._cv:
                 self._err = e

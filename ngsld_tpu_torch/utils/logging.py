@@ -229,7 +229,9 @@ class RunLog:
             rec = self.span_record()
             payload = {
                 "phases": {n: round(t, 3) for n, t in timings},
-                "stages": {k: round(v, 3) for k, v in stages},
+                # to the microsecond, as the spans: a stage of a fast
+                # thread (a small file's reads) is not lost to rounding
+                "stages": {k: round(v, 6) for k, v in stages},
                 "counters": rec.pop("counters"),
                 **rec,
                 "process": PROCESS.span_record(),

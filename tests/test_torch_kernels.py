@@ -85,7 +85,7 @@ def test_failed_compile_raises_with_nvcc_stderr(monkeypatch, tmp_path):
         build.build_libraries()
     # one nvcc per source, and every failure is reported
     assert all(f"{name}.cu" in str(ei.value) for name in build.sources())
-    assert len(build.sources()) == 5
+    assert len(build.sources()) == 6
     assert os.listdir(tmp_path / "out") == []
 
 
@@ -96,8 +96,8 @@ def test_library_path_keys_on_sources_and_flags(monkeypatch):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("pair_em") != a
     assert sorted(build.sources()) == sorted(build.ENTRY_POINTS) \
-        == ["pair_em", "pair_em_ichunk", "pair_em_rows", "strip_em",
-            "strip_em_stream"]
+        == ["gl_narrow", "pair_em", "pair_em_ichunk", "pair_em_rows",
+            "strip_em", "strip_em_stream"]
     assert all(s.endswith(".cu") for s in build.sources().values())
     assert "--use_fast_math" not in build.NVCC_FLAGS
 

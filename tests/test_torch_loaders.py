@@ -300,3 +300,98 @@ def test_f32_run_through_the_binary_loader_holds_the_f32_contract(files,
     assert main(argv + ["--engine", "strict", "--out", str(s_out)]) == 0
     cmp_vs_strict(s_out.read_text().splitlines(),
                   t_out.read_text().splitlines(), 300)
+
+
+def _numpy_verdict(a, np_dt, in_log):
+    """The host checks the binary loader made before they moved to the
+    slab's consumer: numpy's, on the slab narrowed by astype."""
+    with np.errstate(over="ignore"):
+        a = a.astype(np_dt)
+    bad = np.isnan(a).any() or np.isposinf(a).any()
+    if in_log:
+        return bool(bad or np.isneginf(a).all(axis=-1).any())
+    return bool(bad or (a < 0).any())
+
+
+# (record, flagged in f32, flagged in f64) for each scale: the checks read
+# the narrowed values, so an f64 value past f32-max narrows to inf (the
+# documented deviation of f32 tables) and a negative f64 subnormal to -0
+_RECORDS = {
+    True: [((np.nan, -1.0, -2.0), True, True),
+           ((-1.0, np.inf, -2.0), True, True),
+           ((-np.inf, -np.inf, -np.inf), True, True),
+           ((-np.inf, -1.0, -np.inf), False, False),
+           ((-1e300, -1e300, -1e300), True, False),
+           ((-1.0, 1e300, -2.0), True, False),
+           ((-5.0, -1e-310, -0.0), False, False)],
+    False: [((np.nan, 0.5, 0.2), True, True),
+            ((0.5, np.inf, 0.2), True, True),
+            ((0.5, -0.25, 0.2), True, True),
+            ((0.5, 0.2, -np.inf), True, True),
+            ((-1e-310, 0.5, 0.2), False, True),   # f32: -0.0
+            ((0.0, 0.0, 0.0), False, False),
+            ((-0.0, 0.5, 1e-310), False, False),
+            ((0.5, 1e300, 0.2), True, False)],
+}
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("in_log", [True, False], ids=["log", "linear"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plain_narrow_check_flags_the_references_records(dtype, in_log,
+                                                         where):
+    """kernels.gl_narrow's plain version on CPU slabs: narrowed bit for
+    bit as numpy's astype (subnormals, values past f32-max), flagged
+    exactly where the host checks flagged (NaN, +inf, three -infs in log
+    scale, a negative in linear scale), on a bad record first or last in
+    the slab; a linear zero and a single -inf pass. The flag is ORed, not
+    set: a clean slab leaves a set flag set."""
+    from ngsld_tpu_torch.kernels.gl_narrow import narrow_check
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(41)
+    k, m = 6, 5
+    base = rng.uniform(0.01, 1.0, (k, m, 3))
+    base[1, 2] = (1e-40, 3e-45, 1e-310)   # subnormal in f32 or f64
+    base = np.log(base) if in_log else base
+    pos = (0, 0) if where == "first" else (k - 1, m - 1)
+    for rec, bad32, bad64 in [((0.3, 0.3, 0.3) if not in_log
+                               else (-0.3, -0.3, -0.3), False, False),
+                              *_RECORDS[in_log]]:
+        a = base.copy()
+        a[pos] = rec
+        flag = torch.zeros(1, dtype=torch.int32)
+        out = narrow_check(torch.from_numpy(a), dtype, in_log, flag)
+        want = bad32 if dtype == torch.float32 else bad64
+        assert int(flag) == want == _numpy_verdict(a, np_dt, in_log), rec
+        assert out.dtype == dtype and out.shape == a.shape
+        with np.errstate(over="ignore"):
+            host = a.astype(np_dt)
+        np.testing.assert_array_equal(out.numpy().view(np.uint8),
+                                      host.view(np.uint8)) \
+            if not np.isnan(a).any() else \
+            np.testing.assert_array_equal(out.numpy(), host)
+        if not want:
+            narrow_check(torch.from_numpy(a), dtype, in_log,
+                         flag.fill_(1))
+            assert int(flag) == 1
+
+
+@pytest.mark.parametrize("stream_np", [False, True])
+def test_binary_reader_short_read_is_premature_eof(files, monkeypatch,
+                                                   stream_np):
+    """A file that ends before n_sites records (it shrank after the size
+    check) ends the reader with strict.read_geno's error on that file."""
+    monkeypatch.setenv("NGSLD_SLAB_BYTES", "4000")
+    p = dataclasses.replace(params_from_args(_pars(files, "glf")),
+                            n_sites=N_SITES + 1)
+    with pytest.raises(strict.StrictError) as want:
+        _read_geno(p)
+    ld = loaders._StreamedGLLoader(p, np.float32, "cpu", stream_np=stream_np)
+    with pytest.raises(strict.StrictError) as got:
+        if stream_np:
+            for _ in ld.np_slabs():
+                pass
+        else:
+            ld.join()
+    assert "premature EOF" in str(got.value)
+    assert str(got.value) == str(want.value)

@@ -295,3 +295,34 @@ def test_checkpoint_kill_and_resume_under_the_overlap(files, tmp_path,
     assert tim["counters"]["overlap_ingest"] == 1
     assert tim["counters"]["blocks_resumed"] == 3
     assert resumed == plain
+
+
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_ingest_stops_at_the_bad_slab(files, where, prec):
+    """A bad record in the fourth slab (sites 60-79), on its first or last
+    site: the ingest raises the reference's NaN error with the first three
+    slabs covered and no site of the fourth; a wait inside the coverage
+    returns, one past it raises."""
+    from ngsld_tpu_torch.ops.preprocess import preprocess
+    from ngsld_tpu_torch.utils.logging import RunLog
+    raw = np.fromfile(files["glf"], np.float64).reshape(N_SITES, N_IND, 3)
+    raw[60 if where == "first" else 79, 0 if where == "first" else -1] = \
+        -np.inf
+    bad = files["glf"] + f".{where}.{prec}.bad"
+    raw.tofile(bad)
+    pars = params_from_args(_argv(dict(files, glf=bad)))
+    np_dt, dt = ((np.float32, torch.float32) if prec == "f32"
+                 else (np.float64, torch.float64))
+    pre = lambda t: preprocess(t, call=False, N_thresh=0.0,  # noqa: E731
+                               call_thresh=0.0, ignore_miss_data=False,
+                               raw=True, in_log=True)
+    loader = loaders._StreamedGLLoader(pars, np_dt, "cpu", stream_np=True)
+    ingest = loaders._OverlapIngest(loader, pars, dt, pre, "cpu", RunLog(0))
+    with pytest.raises(strict.StrictError, match="NaN found"):
+        ingest.join_all()
+    assert ingest.failed and ingest.n_slabs == 3 and ingest._cov == 60
+    ingest.wait(60)
+    with pytest.raises(strict.StrictError, match="NaN found"):
+        ingest.wait(61)
+    os.remove(bad)

@@ -194,7 +194,13 @@ def test_sums_are_the_spans_under_their_old_names(files, tmp_path,
     # ingest's thread, the plan's prefetch thread, the emit threads
     threads = {s[0]: s[1] for s in tim["spans"]}
     reader = "ngsld-gltext-read" if path == "text" else "ngsld-gl-read"
-    assert threads["load: read"] == threads["load: parse"] == reader
+    assert threads["load: read"] == reader
+    # the binary reader only reads: its slabs are narrowed and checked by
+    # their consumer (kernels/gl_narrow.py)
+    if path == "text":
+        assert threads["load: parse"] == reader
+    else:
+        assert "load: parse" not in threads
     if path == "overlap":
         assert threads["ingest: upload"] == "ngsld-ingest"
         assert {"ingest: slab wait", "ingest: preprocess",
