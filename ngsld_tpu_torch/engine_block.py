@@ -296,6 +296,7 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
     # CUDA device. NGSLD_BLOCK_STRIP=1/0 forces on/off.
     strip_mode = False
     strip_env = os.environ.get("NGSLD_BLOCK_STRIP")
+    hi_b = None
     if strip_env != "0" and prec == "f32":
         with log.span("plan: strip plan"):
             hi_b = band_limits(pos_dist, pars.max_kb_dist, pars.max_snp_dist)
@@ -381,6 +382,15 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
         cut = slice(m.ii * ipl, (m.ii + 1) * ipl)
         gn_d, eg_d = gn_d[:, cut].contiguous(), eg_d[:, cut].contiguous()
 
+    # the in-band candidates the plan walks, before its MAF skip and
+    # sampling (iter_pair_blocks' own counts), from the strip plan's band
+    # limits where it made them
+    if hi_b is None:
+        hi_b = band_limits(pos_dist, pars.max_kb_dist, pars.max_snp_dist)
+    log.count("plan_candidates", int(np.maximum(
+        hi_b - np.arange(pars.n_sites) - 1, 0)[~(maf_plan < pars.min_maf)]
+        .sum()))
+
     ckpt = None
     if pars.checkpoint:
         # the fingerprint pins the sweep decomposition (gather mode's
@@ -413,14 +423,17 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
         fmt_rw = writer if writer is not None \
             else RowWriter(None, labels, pars.extend_out)
 
-    def pull(bi, blk, dev_out, meta=None, flat_sel=None, spec=None):
+    def pull(bi, blk, dev_out, meta=None, flat_sel=None, spec=None,
+             rung=None):
         """Stage 1: device results -> host numpy (waits for the block's
         kernels on the current stream). Compacted strip chunks and gather
         blocks bring exactly their live rows; flat strip chunks (flat_sel)
         bring their whole tile rectangle and the sel permutation applies
         here as a numpy take. On a mesh (spec: each 'pairs' row's sending
         rank, rows and their places) the other rows' pieces arrive here,
-        each from the first rank of its row, and join rank 0's own."""
+        each from the first rank of its row, and join rank 0's own.
+        rung: the gather rung that took the block (rank 0's piece of it
+        on a mesh), passed on to fmt's counters."""
         with log.span("sweep: result pull"):
             fm = dev_out[0].cpu().numpy()
             im = dev_out[1].cpu().numpy()
@@ -428,9 +441,10 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
                 fm, im = fm[flat_sel], im[flat_sel]
         if spec is not None:
             fm, im = _assemble(m, fm, im, spec)
-        return bi, blk, fm, im, meta
+        return bi, blk, fm, im, meta, rung
 
-    def send(bi, blk, dev_out, meta=None, flat_sel=None, spec=None):
+    def send(bi, blk, dev_out, meta=None, flat_sel=None, spec=None,
+             rung=None):
         """The pull stage of a rank other than 0: the first rank of each
         row sends its piece to rank 0; the others' rows are the same."""
         if m.ii == 0:
@@ -439,7 +453,7 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
 
     pending = []   # pulled chunks of an in-flight split anchor group
 
-    def fmt(bi, blk, fm, im, meta=None):
+    def fmt(bi, blk, fm, im, meta=None, rung=None):
         """Stage 2 (CPU): derive stats, format rows to bytes. Degenerate
         pairs (refine.degenerate_tiers) take the strict recompute (tier 1)
         or the f64 re-derive (tier 2) as override columns of the same
@@ -470,12 +484,12 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
                                 dist=blk.dist[order])
                 fm, im = fm[order], im[order]
         with log.span("sweep: format"):
-            data = format_rows(blk, fm, im)
+            data = format_rows(blk, fm, im, rung)
         return bi, data, span0
 
-    def format_rows(blk, fm, im):
+    def format_rows(blk, fm, im, rung=None):
         """fmt's derive and format of a block's (or merged group's) rows
-        -> the rows' bytes."""
+        -> the rows' bytes. rung: see pull."""
         with log.span("sweep: fmt/tiers"):
             n_iter = im[:, 0].astype(np.int32)
             if im.shape[1] > 1:
@@ -485,7 +499,10 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
                 # cohort
                 n_used = np.full(im.shape[0], pars.n_ind, np.int32)
                 im = np.column_stack([n_iter, n_used])
-            log.count("em_iterations", int(n_iter.astype(np.int64).sum()))
+            its = int(n_iter.astype(np.int64).sum())
+            log.count("em_iterations", its)
+            if rung is not None:
+                log.count("em_iterations_" + rung, its)
             if pars.verbose >= 2:
                 log.hist("em_iteration_histogram",
                          np.bincount(np.clip(n_iter, 0, 100)))
@@ -892,6 +909,7 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
                         sidx = torch.from_numpy(np.stack(
                             [blk.s1[lo_p:hi_p], blk.s2[lo_p:hi_p]]).astype(
                                 np.int32)).to(device)
+                        rung = None
                         if shard_ind > 1:
                             log.count("ind_blocks")
                             dev_out = compute_block_ind(
@@ -900,14 +918,17 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
                         else:
                             # the ladder's rung for this piece, as
                             # compute_block picks it
-                            log.count("rung_" + pick_gather_kernel(
+                            rung = pick_gather_kernel(
                                 pars.n_ind, gn_d.element_size(), device,
-                                hi_p - lo_p))
+                                hi_p - lo_p)
+                            log.count("rung_" + rung)
+                            log.count("pairs_" + rung, hi_p - lo_p)
                             dev_out = compute.compute_block(
                                 gn_d, eg_d, maf_d, sidx,
                                 pars.ignore_miss_data)  # async
                     with log.span("sweep: emit wait"):
-                        emit_q.put((bi, blk, dev_out, None, None, spec))
+                        emit_q.put((bi, blk, dev_out, None, None, spec,
+                                    rung))
             finally:
                 # always shut the pipeline down, even when the loop raises:
                 # stages blocked on get() would otherwise pin device buffers
