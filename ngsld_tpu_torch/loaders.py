@@ -3,7 +3,8 @@
 Three streaming paths, all with the reference's exact read semantics
 (read_data.cpp:13-116):
   * _StreamedGLLoader    binary doubles: slab reader + uploader threads
-  * _StreamedTextLoader  gz text through the native chunk parser
+  * _StreamedTextLoader  gz text: pieces inflated by the reader thread,
+                         their slices parsed on a pool of threads
   * _ring_sharded_tables this rank's block of the --ring table, filled
                          slab by slab into its rows of one device tensor
 
@@ -50,6 +51,12 @@ def _eof_error():
     """strict.read_geno's error on a file with fewer records than
     n_sites."""
     return strict.StrictError("read_geno", "GENO file at premature EOF. "
+                              "Check GENO file and number of sites!")
+
+
+def _not_eof_error():
+    """read_geno's error on any byte after the n_sites-th record."""
+    return strict.StrictError("read_geno", "GENO file not at EOF. "
                               "Check GENO file and number of sites!")
 
 
@@ -262,18 +269,26 @@ class _StreamedGLLoader(_SlabUploader):
 
 
 class _StreamedTextLoader(_SlabUploader):
-    """gz-text GL fast path (Beagle probs / called-genotype formats):
-    decompressed chunks parse through the native line parser in a reader
-    thread while an uploader thread copies the slabs to the device. Records
-    arrive already log-normalised (the parser is the code path of the
-    native read_geno), so the engine's standard (raw=False) preprocess
-    applies.
+    """gz-text GL fast path (Beagle probs / called-genotype formats): the
+    reader thread inflates the text piece by piece and its whole-line
+    slices parse on PARSE_THREADS worker threads (_text_slabs), while an
+    uploader thread copies the slabs to the device. Records arrive already
+    log-normalised (the parser is the code path of the native read_geno),
+    so the engine's standard (raw=False) preprocess applies.
 
     EOF parity with read_geno (read_data.cpp:33,106-109): fewer lines than
     n_sites -> 'premature EOF'; ANY byte after the n_sites-th record ->
     'not at EOF'. NGSLD_NO_FASTTEXT=1 opts out."""
 
-    CHUNK_BYTES = 48 << 20
+    # decompressed bytes of one piece: the reader inflates the next piece
+    # while the slices of the last one parse
+    CHUNK_BYTES = 6 << 20
+    # a piece parses in at most PARSE_THREADS slices of at least
+    # MIN_SLICE_BYTES each (so a small file parses in one). One core is
+    # left to the reader: its inflate sets the pace, and a parse thread on
+    # every core slows it by a third
+    PARSE_THREADS = max(1, min((os.cpu_count() or 1) - 1, 8))
+    MIN_SLICE_BYTES = 128 << 10
 
     @staticmethod
     def applicable(pars) -> bool:
@@ -289,57 +304,193 @@ class _StreamedTextLoader(_SlabUploader):
         super().__init__(pars, np_dtype, device, "gltext", log=log)
 
     def _read(self):
-        from .native import parse_geno_text_native
-        p = self._pars
-        n = p.n_sites
-        # NGSLD_SLAB_BYTES caps the decompressed bytes parsed at once, as
-        # it caps the binary loader's slab (small values force several
-        # slabs on tiny fixtures)
-        chunk_bytes = min(self.CHUNK_BYTES, int(os.environ.get(
+        # NGSLD_SLAB_BYTES caps the decompressed bytes of a piece, as it
+        # caps the binary loader's slab (small values force several
+        # pieces on tiny fixtures)
+        piece = min(self.CHUNK_BYTES, int(os.environ.get(
             "NGSLD_SLAB_BYTES", self.CHUNK_BYTES)))
-        span = self._log.span
-        with strict.open_maybe_gz(p.in_geno, "rb") as fh:
-            carry = b""
-            s = 0
-            leftover = b""
+        # on a card the slices are parsed straight into pinned slabs
+        for a in _text_slabs(self._pars, self._dt, piece, self._log,
+                             "ngsld-gltext-parse", pinned=self._cuda):
+            self._put(a)
+
+
+def _fill(fh, buf, start):
+    """Read from fh into buf[start:len(buf) - 1] (the last byte stays
+    spare); returns (bytes in buf, whether the file ended)."""
+    cap = len(buf) - 1
+    with memoryview(buf) as mv:
+        while start < cap:
+            r = fh.readinto(mv[start:cap])
+            if not r:
+                return start, True
+            start += r
+    return start, False
+
+
+def _text_slabs(pars, np_dtype, piece_bytes, log, thread_name,
+                pinned=False):
+    """The records of a text GENO file (gz or plain; Beagle probs or
+    called genotypes), log-normalised as read_geno makes them, at np_dtype
+    (float32 or float64), as host slabs in file order: numpy arrays, or
+    pinned torch tensors when `pinned`. Raises read_geno's errors
+    (read_data.cpp:13-116), each where read_geno would.
+
+    The calling thread inflates the file in pieces of piece_bytes into two
+    buffers in turn, each with a spare byte for the NUL of a last line
+    without '\\n' (a line longer than a piece grows its buffer). A piece's
+    whole lines are cut into up to PARSE_THREADS slices, which parse on a
+    pool of threads of that name (span `load: parse slice`), each into its
+    rows of one slab of the slices' line count (C counts them), while the
+    caller inflates the next piece; the caller takes the slices back in
+    file order (span `load: parse`) and hands on the piece's slab.
+    Only lines before the file's first record are tested as headers with
+    read_geno's first-site rule: while no record has been read, the
+    caller parses a piece's lines up to its first record itself. So the
+    thread count never changes a record or an error: a bad line raises
+    only where fewer than n_sites records come before it, and any byte
+    after the n_sites-th record raises 'not at EOF', whichever slice or
+    piece holds it. Counters: parse_threads, parse_slices."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .native import count_lines_native, parse_geno_text_to
+    n, m = pars.n_sites, pars.n_ind
+    f32 = np.dtype(np_dtype) == np.float32
+    tdt = torch.float32 if f32 else torch.float64
+    n_threads = _StreamedTextLoader.PARSE_THREADS
+    floor = _StreamedTextLoader.MIN_SLICE_BYTES
+    span = log.span
+    log.count("parse_threads", n_threads)
+
+    rec_bytes = m * 3 * np.dtype(np_dtype).itemsize
+
+    def alloc(rows):
+        """A host slab of `rows` records, and its address."""
+        if pinned:
+            t = torch.empty((rows, m, 3), dtype=tdt, pin_memory=True)
+            return t, t.data_ptr()
+        a = np.empty((rows, m, 3), np_dtype)
+        return a, a.ctypes.data
+
+    def parse(base, length, s_global, addr, rows):
+        """The `length` bytes at address `base` parsed into at most `rows`
+        records at address addr: (records, bytes up to the end of the
+        last record's line, the error's text or None)."""
+        return parse_geno_text_to(base, length, pars.in_probs,
+                                  pars.in_logscale, m, s_global, addr, f32,
+                                  rows)
+
+    def parse_slice(buf, slab, *args):
+        """parse() on the pool; buf and slab, which hold the slice's bytes
+        and its rows, stay alive while the call runs."""
+        with span("load: parse slice"):
+            return parse(*args)
+
+    s = 0   # records taken so far
+
+    def take(piece):
+        """The slabs of a piece's slices, in file order, checked against
+        n_sites: views of the piece's slab, one where every line of the
+        slices was a record."""
+        nonlocal s
+        if piece is None:
+            return []
+        slab, parts = piece
+        runs = []   # [first row, end row) of the records
+        for off, length, f in parts:
+            got, last_end, err = f.result()
+            if err is not None:
+                # read_geno stops at its n_sites-th record, before this line
+                raise (strict.StrictError("read_geno", err) if s + got < n
+                       else _not_eof_error())
+            if s + got > n or (s + got == n and last_end < length):
+                raise _not_eof_error()
+            s += got
+            if runs and runs[-1][1] == off:
+                runs[-1][1] = off + got
+            elif got:
+                runs.append([off, off + got])
+        return [slab[r0:r1] for r0, r1 in runs]
+
+    def submit(buf, base, body):
+        """Parse buf[:body] (whole lines): the head up to the file's first
+        record here, the rest in slices on the pool, each into its rows of
+        one slab sized by the slices' lines. Returns (the head's slab, the
+        piece for take())."""
+        nonlocal s
+        head, a = [], 0
+        if s == 0:
+            out, addr = alloc(1)
+            got, last_end, err = parse(base, body, 0, addr, 1)
+            if err is not None:
+                raise strict.StrictError("read_geno", err)
+            a = last_end if got else body
+            if got:
+                head, s = [out], 1
+        if a == body:
+            return head, None
+        q = max(1, min(n_threads, (body - a) // floor))
+        edges = [a]
+        for i in range(1, q):
+            nl = buf.find(b"\n", a + (body - a) * i // q - 1, body)
+            if nl < 0 or nl + 1 >= body:
+                break
+            if nl + 1 > edges[-1]:
+                edges.append(nl + 1)
+        edges.append(body)
+        lines = [count_lines_native(base + e0, e1 - e0)
+                 for e0, e1 in zip(edges, edges[1:])]
+        slab, addr = alloc(sum(lines))
+        parts, off = [], 0
+        for e0, e1, rows in zip(edges, edges[1:], lines):
+            parts.append((off, e1 - e0, pool.submit(
+                parse_slice, buf, slab, base + e0, e1 - e0, s,
+                addr + off * rec_bytes, rows)))
+            off += rows
+        log.count("parse_slices", len(parts))
+        return head, (slab, parts)
+
+    bufs = [bytearray(piece_bytes + 1) for _ in range(2)]
+    pool = ThreadPoolExecutor(n_threads, thread_name_prefix=thread_name)
+    piece = None   # the slices of the last piece, still parsing
+    try:
+        with strict.open_maybe_gz(pars.in_geno, "rb") as fh:
+            k, c = 0, 0   # the piece, the bytes carried into its buffer
             while True:
+                buf = bufs[k % 2]
                 with span("load: read"):   # the inflate included
-                    data = fh.read(chunk_bytes)
-                eof = not data
-                buf = carry + data
-                if eof:
-                    if not buf:
-                        break
-                    chunk, carry = buf + b"\n", b""  # final bare line
-                else:
-                    cut = buf.rfind(b"\n")
-                    if cut < 0:
-                        carry = buf
-                        continue
-                    chunk, carry = buf[:cut + 1], buf[cut + 1:]
-                if s >= n:
-                    leftover = chunk
-                    break
+                    end, eof = _fill(fh, buf, c)
+                    while not eof and buf.rfind(b"\n", 0, end) < 0:
+                        # a line longer than the buffer
+                        buf = bytearray(2 * len(buf) - 1)
+                        buf[:end] = bufs[k % 2][:end]
+                        bufs[k % 2] = buf
+                        end, eof = _fill(fh, buf, end)
+                body = end if eof else buf.rfind(b"\n", 0, end) + 1
                 with span("load: parse"):
-                    recs, used = parse_geno_text_native(
-                        chunk, p.in_probs, p.in_logscale, p.n_ind, s,
-                        min(chunk.count(b"\n"), n - s))
-                    if len(recs):
-                        recs = np.ascontiguousarray(recs, dtype=self._dt)
-                if len(recs):
-                    self._put(recs)
-                s += len(recs)
-                if used < len(chunk):
-                    leftover = chunk[used:]
-                    break
+                    slabs, piece = take(piece), None
+                    if body:
+                        if s >= n:
+                            raise _not_eof_error()
+                        base = np.frombuffer(buf, np.uint8).ctypes.data
+                        head, piece = submit(buf, base, body)
+                        slabs += head
+                yield from slabs
                 if eof:
                     break
+                k += 1
+                c = end - body
+                nxt = bufs[k % 2]
+                if len(nxt) < len(buf):
+                    nxt = bufs[k % 2] = bytearray(len(buf))
+                nxt[:c] = buf[body:end]
+            with span("load: parse"):
+                slabs = take(piece)
+            yield from slabs
             if s < n:
                 raise _eof_error()
-            if leftover or carry or fh.read(1):
-                raise strict.StrictError(
-                    "read_geno", "GENO file not at EOF. "
-                    "Check GENO file and number of sites!")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 # host bytes of one slab of the ring loader: the loader's host memory is
@@ -423,49 +574,15 @@ def _ring_sharded_tables(pars, n_dev, B, Sp, np_dt, log, device, m=None,
 
     gl[rows:].fill_(float(pad_log))
     if _StreamedTextLoader.applicable(pars):
-        # gz-text: native chunked parse of the whole file (records arrive
-        # log-normalised); this block's records go straight into their
-        # rows, the others are dropped as soon as they parse
-        from .native import parse_geno_text_native
-        chunk_bytes = min(slab_bytes, _StreamedTextLoader.CHUNK_BYTES)
-        with strict.open_maybe_gz(pars.in_geno, "rb") as fh:
-            carry = b""
-            s = 0
-            leftover = b""
-            while True:
-                data = fh.read(chunk_bytes)
-                eof = not data
-                buf = carry + data
-                if eof:
-                    if not buf:
-                        break
-                    chunk, carry = buf + b"\n", b""
-                else:
-                    cut = buf.rfind(b"\n")
-                    if cut < 0:
-                        carry = buf
-                        continue
-                    chunk, carry = buf[:cut + 1], buf[cut + 1:]
-                if s >= n:
-                    leftover = chunk
-                    break
-                recs, used = parse_geno_text_native(
-                    chunk, pars.in_probs, pars.in_logscale, m_ind, s,
-                    min(chunk.count(b"\n"), n - s))
-                put(s, recs)
-                s += len(recs)
-                del recs
-                if used < len(chunk):
-                    leftover = chunk[used:]
-                    break
-                if eof:
-                    break
-            if s < n:
-                raise _eof_error()
-            if leftover or carry or fh.read(1):
-                raise strict.StrictError(
-                    "read_geno", "GENO file not at EOF. "
-                    "Check GENO file and number of sites!")
+        # gz-text: the text loader's parallel parse of the whole file
+        # (records arrive log-normalised); this block's records go
+        # straight into their rows, the others are dropped as they parse
+        s = 0
+        for a in _text_slabs(pars, np_dt, min(
+                slab_bytes, _StreamedTextLoader.CHUNK_BYTES), log,
+                "ngsld-ring-parse"):
+            put(s, a)
+            s += len(a)
         return gl, False
 
     # fallback: the strict reader (the reference's exact error surface);

@@ -140,6 +140,14 @@ def get_lib():
             ctypes.POINTER(ctypes.c_char), i64, ctypes.c_int, ctypes.c_int,
             i64, i64, ctypes.POINTER(ctypes.c_double), i64,
             ctypes.POINTER(i64), ctypes.c_char_p, ctypes.c_long]
+        vp = ctypes.c_void_p
+        lib.ngsld_parse_geno_text_to.restype = i64
+        lib.ngsld_parse_geno_text_to.argtypes = [
+            vp, i64, ctypes.c_int, ctypes.c_int, i64, i64, vp, ctypes.c_int,
+            i64, ctypes.POINTER(i64), ctypes.POINTER(i64),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_long]
+        lib.ngsld_count_lines.restype = i64
+        lib.ngsld_count_lines.argtypes = [vp, i64]
         u64 = ctypes.c_uint64
         lib.ngsld_child_seeds.restype = None
         lib.ngsld_child_seeds.argtypes = [u64, i64, ctypes.POINTER(u64)]
@@ -297,6 +305,36 @@ def parse_geno_text_native(chunk: bytes, in_probs: bool, in_logscale: bool,
     if got < 0:
         raise StrictError("read_geno", err.value.decode())
     return out[:got], int(consumed.value)
+
+
+def count_lines_native(addr: int, length: int) -> int:
+    """The lines of the `length` bytes at address `addr`: its '\\n's, and
+    one more for a last line without one (the native library must be
+    loaded)."""
+    return get_lib().ngsld_count_lines(addr, length)
+
+
+def parse_geno_text_to(addr: int, length: int, in_probs: bool,
+                       in_logscale: bool, n_ind: int, s_global: int,
+                       out_addr: int, out_f32: bool, max_sites: int):
+    """parse_geno_text_native on the `length` bytes at address `addr`
+    (whole lines, mutated as that parse does; a last line without '\\n'
+    needs one writable byte past them), the records written to the
+    C-contiguous table at out_addr, float32 when out_f32 else float64 (the
+    same bits as narrowing the f64 records). The ctypes call releases the
+    GIL, so slices of one text parse on several threads. Returns (records,
+    bytes up to the end of the last record's line, the error's text or
+    None): an error stops the parse at its line, with the records before
+    it written (the native library must be loaded)."""
+    i64 = ctypes.c_int64
+    consumed, last_end, rc = i64(0), i64(0), ctypes.c_int(0)
+    err = ctypes.create_string_buffer(256)
+    got = get_lib().ngsld_parse_geno_text_to(
+        addr, length, int(in_probs), int(in_logscale), n_ind, s_global,
+        out_addr, int(out_f32), max_sites, ctypes.byref(consumed),
+        ctypes.byref(last_end), ctypes.byref(rc), err, 256)
+    return got, int(last_end.value), (err.value.decode() if rc.value
+                                      else None)
 
 
 def read_pos_native(path: str, header: bool, n_sites: int):

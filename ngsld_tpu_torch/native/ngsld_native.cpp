@@ -18,6 +18,7 @@
 #include <cstring>
 #include <limits>
 #include <thread>
+#include <type_traits>
 #include <vector>
 #include <zlib.h>
 
@@ -374,6 +375,58 @@ int parse_geno_line(char* line, size_t len, int in_probs, int in_logscale,
   return 0;
 }
 
+// The body of the chunk parsers (ngsld_parse_geno_text below): records of
+// whole lines into `out`, doubles as parse_geno_line writes them or
+// floats narrowed from them. Returns the records written; *rc is 0, or
+// the negative error code of the line that stopped the parse.
+template <typename T>
+int64_t parse_text_lines(char* data, int64_t len, int in_probs,
+                         int in_logscale, int64_t n_ind, int64_t s_global,
+                         T* out, int64_t max_sites, int64_t* consumed,
+                         int64_t* last_end, int* rc, char* err,
+                         long errlen) {
+  constexpr bool kNarrow = !std::is_same<T, double>::value;
+  const int64_t rec = n_ind * kNGeno;
+  double* fields = (double*)std::malloc(sizeof(double) * (rec + 4096));
+  int64_t fields_cap = rec + 4096;
+  std::vector<double> site(kNarrow ? rec : 0);
+  int64_t s = 0;
+  int64_t pos = 0;
+  *rc = 0;
+  *last_end = 0;
+  while (pos < len && s < max_sites) {
+    char* line = data + pos;
+    int64_t end = pos;
+    while (end < len && data[end] != '\n') end++;
+    size_t llen = (size_t)(end - pos);
+    pos = end < len ? end + 1 : end;
+    data[(line - data) + llen] = '\0';  // safe: either '\n' slot or end pad
+    // chomp removed the '\n'; strip ONE trailing '\r' like the gz reader
+    if (llen > 0 && line[llen - 1] == '\r') line[--llen] = '\0';
+    double* g;
+    if constexpr (kNarrow) g = site.data();
+    else g = out + s * rec;
+    int r = parse_geno_line(line, llen, in_probs, in_logscale, n_ind,
+                            s_global + s == 0, &fields, &fields_cap, g, err,
+                            errlen);
+    if (r < 0) {
+      *rc = r;
+      break;
+    }
+    if (r != 1) {
+      if constexpr (kNarrow) {
+        T* o = out + s * rec;
+        for (int64_t i = 0; i < rec; i++) o[i] = (T)g[i];
+      }
+      s++;
+      *last_end = pos;
+    }
+  }
+  std::free(fields);
+  *consumed = pos;
+  return s;
+}
+
 }  // namespace
 
 extern "C" {
@@ -461,32 +514,49 @@ int64_t ngsld_parse_geno_text(char* data, int64_t len, int in_probs,
                               int64_t s_global, double* out,
                               int64_t max_sites, int64_t* consumed,
                               char* err, long errlen) {
-  double* fields = (double*)std::malloc(sizeof(double) * (n_ind * 3 + 4096));
-  int64_t fields_cap = n_ind * 3 + 4096;
-  int64_t s = 0;
-  int64_t pos = 0;
-  int rc = 0;
-  while (pos < len && s < max_sites) {
-    char* line = data + pos;
-    int64_t end = pos;
-    while (end < len && data[end] != '\n') end++;
-    size_t llen = (size_t)(end - pos);
-    pos = end < len ? end + 1 : end;
-    data[(line - data) + llen] = '\0';  // safe: either '\n' slot or end pad
-    // chomp removed the '\n'; strip ONE trailing '\r' like the gz reader
-    if (llen > 0 && line[llen - 1] == '\r') line[--llen] = '\0';
-    int r = parse_geno_line(line, llen, in_probs, in_logscale, n_ind,
-                            s_global + s == 0, &fields, &fields_cap,
-                            out + s * n_ind * kNGeno, err, errlen);
-    if (r < 0) {
-      rc = r;
-      break;
-    }
-    if (r != 1) s++;
-  }
-  std::free(fields);
-  *consumed = pos;
+  int64_t last_end;
+  int rc;
+  int64_t s = parse_text_lines(data, len, in_probs, in_logscale, n_ind,
+                               s_global, out, max_sites, consumed,
+                               &last_end, &rc, err, errlen);
   return rc < 0 ? rc : s;
+}
+
+// ngsld_parse_geno_text into a table of the loader's dtype: out_f32 makes
+// `out` floats, each record narrowed after post_prob3 (the same bits as
+// narrowing the f64 records afterwards), else doubles. Returns the records
+// written, also when a bad line stopped the parse (*rc its negative code,
+// else 0). *last_end: the bytes up to the end of the line of the last
+// record written (0 when none), so that a caller parsing one slice of a
+// file knows whether anything follows its n_sites-th record.
+int64_t ngsld_parse_geno_text_to(char* data, int64_t len, int in_probs,
+                                 int in_logscale, int64_t n_ind,
+                                 int64_t s_global, void* out, int out_f32,
+                                 int64_t max_sites, int64_t* consumed,
+                                 int64_t* last_end, int* rc, char* err,
+                                 long errlen) {
+  if (out_f32)
+    return parse_text_lines(data, len, in_probs, in_logscale, n_ind,
+                            s_global, (float*)out, max_sites, consumed,
+                            last_end, rc, err, errlen);
+  return parse_text_lines(data, len, in_probs, in_logscale, n_ind, s_global,
+                          (double*)out, max_sites, consumed, last_end, rc,
+                          err, errlen);
+}
+
+// The lines of data[0, len): its '\n's, and one more for a last line
+// without one. At least the records a parse of those bytes writes.
+int64_t ngsld_count_lines(const char* data, int64_t len) {
+  int64_t n = 0;
+  const char* p = data;
+  const char* end = data + len;
+  while (p < end) {
+    const void* nl = std::memchr(p, '\n', (size_t)(end - p));
+    n++;
+    if (!nl) break;
+    p = (const char*)nl + 1;
+  }
+  return n;
 }
 
 // Binary doubles reader (site-major triplets); always in_probs.

@@ -366,17 +366,20 @@ def test_checkpoint_copy_roundtrip(files, tmp_path):
 
 def test_loaders_copy_keeps_the_rules_and_imports_only_the_port():
     """loaders.py is a port, not a copy (torch uploads in the place of
-    jax.device_put): it keeps the reference's class names, slab sizes and
-    knobs, and imports neither jax nor the JAX package. What it delivers is
-    held against the JAX loaders in tests/test_torch_loaders.py."""
+    jax.device_put): it keeps the reference's class names, binary slab
+    size and knobs, and imports neither jax nor the JAX package. What it
+    delivers is held against the JAX loaders in
+    tests/test_torch_loaders.py."""
     import inspect
     import re
     for name in ("_StreamedGLLoader", "_StreamedTextLoader"):
         assert hasattr(t_loaders, name) and hasattr(j_loaders, name)
     assert t_loaders._StreamedGLLoader.SLAB_BYTES == \
         j_loaders._StreamedGLLoader.SLAB_BYTES == 256 << 20
-    assert t_loaders._StreamedTextLoader.CHUNK_BYTES == \
-        j_loaders._StreamedTextLoader.CHUNK_BYTES == 48 << 20
+    # the port's text loader inflates smaller pieces, whose slices parse
+    # on several threads while the next piece inflates
+    assert j_loaders._StreamedTextLoader.CHUNK_BYTES == 48 << 20
+    assert t_loaders._StreamedTextLoader.CHUNK_BYTES == 6 << 20
     src = inspect.getsource(t_loaders)
     assert not re.search(r"^\s*(import|from)\s+(jax|ngsld_tpu)(\.|\s|$)", src,
                          re.M)

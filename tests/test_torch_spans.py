@@ -4,12 +4,14 @@ Spans nest per thread and record their thread and parent from any
 thread, and many threads at once lose none; the timings JSON's phases, stages and counters are the sums of a
 run's spans under the names they had as sums, on each loader path (the
 gz-text loader, the binary loader, the binary reader under the overlap
-ingest); the main thread's top-level spans cover the run; load_bytes is
+ingest); the gz-text loader's parse slices on its pool's threads, and
+their counters; the main thread's top-level spans cover the run; load_bytes is
 the GENO file's size; the span list stops at its cap and counts what it
 drops; record_function is entered only while a profiler runs, and a
 span's start mapped through the JSON's clock lands on its profiler
 event."""
 
+import gzip
 import io
 import json
 import os
@@ -18,6 +20,7 @@ import threading
 import pytest
 import torch
 
+from ngsld_tpu_torch import loaders
 from ngsld_tpu_torch.cli import params_from_args
 from ngsld_tpu_torch.engine import run_torch
 from ngsld_tpu_torch.utils import logging as runlog
@@ -219,6 +222,52 @@ def test_sums_are_the_spans_under_their_old_names(files, tmp_path,
     proc = tim["process"]
     assert {"unix_ns", "perf_ns"} <= set(proc["clock"])
     assert "init: import" in {s[0] for s in proc["spans"]}
+
+
+def _pieces(path, cap):
+    """The pieces the text loader inflates a file in: at most cap bytes,
+    the partial line at a piece's end carried into the next."""
+    with gzip.open(path, "rb") as fh:
+        body = fh.read()
+    n, a = 0, 0
+    while a < len(body):
+        end = a + cap
+        a = len(body) if end >= len(body) else body.rfind(b"\n", a, end) + 1
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("slices", ["several", "one"])
+def test_text_parse_spans_and_counters(files, tmp_path, monkeypatch, slices):
+    """The gz-text loader: the reader thread opens `load: read` (the
+    inflate) and `load: parse` (its wait for a piece's slices), the parse
+    pool's threads `load: parse slice`. parse_threads is the pool's size;
+    parse_slices counts the slices: more than one on a piece cut in
+    several, one a piece where every piece parses in one (4000-byte
+    pieces)."""
+    monkeypatch.setenv("NGSLD_OVERLAP_UPLOAD", "0")
+    cls = loaders._StreamedTextLoader
+    if slices == "several":   # one piece of about 60 kB, four slices
+        monkeypatch.delenv("NGSLD_SLAB_BYTES")
+        monkeypatch.setattr(cls, "PARSE_THREADS", 4)
+        monkeypatch.setattr(cls, "MIN_SLICE_BYTES", 1024)
+    tim = _job(files, tmp_path, "beagle")
+    threads = {}
+    for name, th, *_ in tim["spans"]:
+        threads.setdefault(name, set()).add(th)
+    reader = {"ngsld-gltext-read"}
+    assert threads["load: read"] == threads["load: parse"] == reader
+    assert threads["load: parse slice"]
+    assert all(th.startswith("ngsld-gltext-parse")
+               for th in threads["load: parse slice"])
+    c = tim["counters"]
+    assert c["parse_threads"] == cls.PARSE_THREADS
+    n_slice = sum(s[0] == "load: parse slice" for s in tim["spans"])
+    assert c["parse_slices"] == n_slice
+    if slices == "several":
+        assert c["parse_slices"] == 4
+    else:
+        assert c["parse_slices"] == _pieces(files["beagle"], 4000) > 1
 
 
 def test_the_span_list_stops_at_its_cap():
