@@ -8,14 +8,17 @@ PyTorch, with its two sweep modes.
         binary records are normalised here too (raw=True)
   host: MAF to host (f64 copy), knife-edge MAF repair, banded pair plan
         (plan.band.iter_pair_blocks) on a prefetch thread
-  dev:  gather mode, per block: one (2, P) int32 index upload, Pearson r2
-        + pair EM (compute.compute_block; the EM kernel follows the
-        cohort size)
-        strip mode, per chunk of <= GMAXT tiles: the tile list (and sel)
-        upload, rectangle EM + r2 (compute.strip_compute_fn/strip_flat_fn)
-        from strip tables built once on the device
-  host: 3-stage emit pipeline (pull -> derive + format (native) -> write),
-        rows in (s1, s2) order; degenerate pairs take refine's tiers
+  dev:  gather mode (_GatherSweep), per block: one (2, P) int32 index
+        upload, Pearson r2 + pair EM (compute.compute_block; the EM kernel
+        follows the cohort size)
+        strip mode (_StripSweep), per chunk of <= gmaxt tiles
+        (plan.strips.strip_chunks): the tile list (and sel) upload,
+        rectangle EM + r2 (compute.strip_compute_fn/strip_flat_fn) from
+        strip tables built once on the device
+        one dispatch loop for both (_dispatch_all)
+  host: 3-stage emit pipeline (_Emit: pull -> derive + format (native)
+        -> write), rows in (s1, s2) order; degenerate pairs take
+        refine.repair_columns' tiers (format_rows)
 
 Under the overlap ingest (loaders._OverlapIngest, the reference's gate:
 _overlap_engaged) the binary upload and the preprocess run slab by slab
@@ -26,7 +29,7 @@ for the whole table, the emit reads the ingest's MAF, and a read error
 that surfaces mid-sweep empties the output before it is raised.
 
 Strip mode is f32-only and is picked when the plan is dense over its
-rectangles (effective utilization >= NGSLD_STRIP_MIN_UTIL on a CUDA
+rectangles (effective utilization >= STRIP_MIN_UTIL on a CUDA
 device); NGSLD_BLOCK_STRIP=1/0 forces it on/off. Large cohorts take the
 streamed strip kernel (kernels.strip_em.strip_streamed), whose tables pad
 the individual axis to its chunk. Both modes regroup the
@@ -37,6 +40,7 @@ with its error: there is no retry on the gather sweep.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import math
@@ -60,14 +64,18 @@ from .ops.preprocess import preprocess
 from .parallel.strip_ind import strip_compute_ind
 from .parallel.sweep import compute_block_ind
 from .plan.band import PairBlock, band_limits, iter_pair_blocks
-from .plan.strips import TA, TB, strip_plan
-from .refine import (StrictRefiner, degenerate_tiers, derive_columns_f64,
-                     knife_edge_sites)
+from .plan.strips import TA, TB, strip_chunks, strip_plan
+from .refine import (StrictRefiner, degenerate_tiers, knife_edge_sites,
+                     repair_columns)
 from .utils.signals import GracefulStop
 
-# pipeline-stage return sentinel: "nothing to forward downstream yet"
-# (the fmt stage is accumulating chunks of a split anchor-tile group)
-_PENDING = object()
+# the strip sweep runs on a CUDA device from this effective utilization of
+# its plan (live-cell fraction x sampling rate: sampled-out cells still
+# burn EM compute); the reference's design value
+STRIP_MIN_UTIL = 0.08
+# a strip chunk emits flat (cell-major, no device gather) from this share
+# of live cells among its tiles' cells
+STRIP_FLAT_UTIL = 0.92
 
 
 def _overlap_engaged(pars, out_fh, m) -> bool:
@@ -215,18 +223,6 @@ def _assemble(m, fm, im, spec):
     return out_fm, out_im
 
 
-class _NoStop:
-    """GracefulStop's place on ranks other than 0: they stop when rank 0
-    ends them."""
-    stopped = False
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
 def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
                     m=None):
     """The block sweep on one device, or this rank's part of it on a mesh
@@ -267,14 +263,534 @@ def _run_torch_body(pars, out_fh, log, prec: str, device: torch.device,
             log.count_time(f"sweep: fmt/refine/{k}", v)
 
 
+def _strip_rule(pars, log, prec, device, maf_plan, pos_dist):
+    """The sweep-mode rule (ngsld_tpu/engine_block.py:286-334): dense
+    strip-tile rectangles when the plan's effective utilization is at
+    least STRIP_MIN_UTIL on a CUDA device, f32 only; NGSLD_BLOCK_STRIP=1/0
+    forces it on/off. -> (plan, hi_b): plan the padded strip plan (hi_p,
+    ok_p, tiles, utilization) when the strip sweep runs, else None; hi_b
+    the band limits where the strip plan made them, else None."""
+    strip_env = os.environ.get("NGSLD_BLOCK_STRIP")
+    if strip_env == "0" or prec != "f32":
+        return None, None
+    with log.span("plan: strip plan"):
+        hi_b = band_limits(pos_dist, pars.max_kb_dist, pars.max_snp_dist)
+        # padded to whole anchor tiles; pad sites are not ok. (The TPU
+        # engine adds one more all-dead partner tile to aim the padding
+        # slots of a fixed-size dispatch at; here a dispatch launches
+        # exactly its chunk's tiles.)
+        Sp = -(-pars.n_sites // TA) * TA
+        hi_p = np.zeros(Sp, np.int64)
+        hi_p[:pars.n_sites] = hi_b
+        ok_p = np.zeros(Sp, np.float32)
+        ok_p[:pars.n_sites] = ~(maf_plan < pars.min_maf)
+        s_ta, _, _, util = strip_plan(hi_p, ok_p, pars.n_sites, TA, TB)
+    u_eff = util * pars.rnd_sample
+    on = len(s_ta) > 0 and (
+        strip_env == "1"
+        or (device.type == "cuda" and u_eff >= STRIP_MIN_UTIL))
+    if len(s_ta) and not on and pars.verbose >= 2:
+        log.log(2, f"==> strip sweep skipped: eff util {u_eff:.3f} < "
+                   f"{STRIP_MIN_UTIL} (gather path)")
+    return ((hi_p, ok_p, len(s_ta), util) if on else None), hi_b
+
+
+class _StripSweep:
+    """The strip sweep's part of the dispatch loop (items: strip_chunks'
+    tuples): the strip tables, the split groups' resume and merge marks,
+    and a chunk's dispatch, flat or compacted, on a mesh this row's share
+    of its tiles."""
+
+    def __init__(self, pars, log, device, m, plan, gn_d, eg_d, maf,
+                 ingest):
+        hi_p, ok_p, n_tiles, util = plan
+        self.log, self.device, self.m = log, device, m
+        n_shards = 1 if m is None else m.shard
+        shard_ind = 1 if m is None else m.shard_ind
+        if ingest is not None:
+            # the strip tables take the whole gn/eg tables (the upload
+            # still ran under the positions parse, the plan and the strip
+            # decision)
+            with log.phase("  gl ingest join (strip tables)", level=2):
+                gn_d, _, eg_d = ingest.join_all()
+            ingest.tables = ()
+        # past the resident kernel's cohort limit strip_em takes the
+        # streamed kernel, and the tables pad the individual axis to its
+        # chunk. With --shard_ind the step is parallel.strip_ind's (no
+        # kernel): the individual axis splits over the row in 8-aligned
+        # slices (ngsld_tpu/engine_block.py:342-345)
+        streamed = shard_ind == 1 and strip_streamed(pars.n_ind, device)
+        ialign = (8 * shard_ind if shard_ind > 1
+                  else strip_i_align(pars.n_ind, device))
+        Sp = len(hi_p)
+        pad = Sp - pars.n_sites
+        with log.phase("strip tables (device)"):
+            ga, gb, ea, eb = strip_tables(
+                torch.nn.functional.pad(gn_d, (0, 0, 0, 0, 0, pad),
+                                        value=1.0 / 3.0),
+                torch.nn.functional.pad(eg_d, (0, 0, 0, pad)), pars.n_ind,
+                i_align=ialign)
+            if shard_ind > 1:
+                # this rank's slice of every record: the standardization
+                # above used the whole cohort's moments
+                ipl = ga.shape[2] // shard_ind
+                i_start = m.ii * ipl
+                cut = slice(i_start, i_start + ipl)
+                ga, gb = ga[:, :, cut].contiguous(), gb[:, cut].contiguous()
+                ea, eb = ea[:, cut].contiguous(), eb[cut].contiguous()
+        maf_d = torch.from_numpy(np.pad(
+            np.asarray(maf, np.float32), (0, pad),
+            constant_values=0.5)).to(device)
+        lo_d = torch.arange(1, Sp + 1, dtype=torch.int32, device=device)
+        hi_d = torch.from_numpy(hi_p.astype(np.int32)).to(device)
+        ok_d = torch.from_numpy(ok_p).to(device)
+        self.tables = (ga, gb, ea, eb, maf_d, maf_d, lo_d, hi_d, ok_d, ok_d)
+        # per-dispatch budgets: up to gmaxt tiles (the device output f is
+        # (tiles, 4, TA, TB) f32, 67 MB at 256) and about ctarget pairs per
+        # chunk: narrow-band groups batch together so a dispatch carries
+        # real work, oversized groups split into <= gmaxt-tile pieces.
+        # --shard: a chunk's tiles split over the 'pairs' rows, so its
+        # tile budget is a whole multiple of them (the reference's rule)
+        gmaxt = max(1, min(n_tiles, int(os.environ.get(
+            "NGSLD_STRIP_TILES", "256"))))
+        self.gmaxt = -(-gmaxt // n_shards) * n_shards
+        self.ctarget = int(os.environ.get("NGSLD_STRIP_CTARGET",
+                                          str(1 << 20)))
+        log.log(2, f"==> strip sweep: {n_tiles} tiles, chunk<= {self.gmaxt} "
+                   f"tiles/{self.ctarget} pairs, util {util:.2f}"
+                   + (f", streamed kernel (I-chunk {ialign})"
+                      if streamed else ""))
+        # "order": split groups merge to anchor-major rows under their
+        # final block index; the strip sweep is f32 only
+        self.extra = {"mode": "strip", "ta": TA, "tb": TB,
+                      "gmaxt": self.gmaxt, "ctarget": self.ctarget,
+                      "order": "anchor", "prec": "f32"}
+        if streamed:
+            # the streamed kernel's chunk sets its summation order
+            self.extra["ic"] = ialign
+        use_i16 = pars.n_ind <= 32767
+        if shard_ind > 1:
+            # ('pairs', 'ind'): parallel.strip_ind's step, one all-reduce
+            # over the row an EM iteration
+            self.fn = functools.partial(
+                strip_compute_ind, n_ind=pars.n_ind, i_start=i_start,
+                mesh=m, ignore_miss=pars.ignore_miss_data, use_i16=use_i16)
+            log.log(2, "==> strip sweep: ('pairs', 'ind') mesh, one "
+                       "all-reduce over 'ind' an EM iteration")
+        else:
+            self.fn = compute.strip_compute_fn(
+                pars.n_ind, pars.ignore_miss_data, use_i16)
+        # flat cell-major emission for near-full chunks: one relayout on
+        # the device and a host-side numpy take in the (pipelined) pull
+        # stage instead of the device sel gather. Pull bytes then scale
+        # with CELLS, so only chunks with live/cells >= STRIP_FLAT_UTIL
+        # qualify. NGSLD_STRIP_EMIT=compact|flat|auto. One device only
+        # (ngsld_tpu/engine_block.py:724-725).
+        self.flat_fn = None
+        emit_mode = os.environ.get("NGSLD_STRIP_EMIT", "auto")
+        if emit_mode != "compact" and m is None:
+            self.flat_fn = compute.strip_flat_fn(
+                pars.n_ind, pars.ignore_miss_data, use_i16)
+        self.flat_util = -1.0 if emit_mode == "flat" else STRIP_FLAT_UTIL
+        self.skip_until = -1                   # resumed split group's end
+        self.run_first = self.run_last = -1    # in-flight split group
+
+    def plan(self, blocks):
+        """(PairBlock, item) pairs of the chunk stream, made on the plan's
+        prefetch thread."""
+        return ((item[3], item) for item in _prefetch_blocks(
+            self.log.spans_of("plan: block", strip_chunks(
+                blocks, self.gmaxt, self.ctarget)), depth=2))
+
+    def resumed(self, bi, item, done_set, ckpt):
+        """Whether chunk bi was committed before this run. A split group is
+        committed as one merged shard at its final chunk, the earlier ones
+        as empty placeholders: its first chunk (re)commits any placeholder
+        the writer did not reach and skips the whole group."""
+        rem = item[4]
+        if bi <= self.skip_until:
+            return True
+        if bi <= self.run_last:
+            return False
+        if rem and bi + rem in done_set:
+            for j in range(bi, bi + rem):
+                if ckpt is not None and not ckpt.done(j):
+                    with ckpt.open_block(j):
+                        pass
+                    ckpt.commit_block(j)
+            self.skip_until = bi + rem
+            return True
+        return not rem and bi in done_set
+
+    def describe(self, bi, item):
+        ta_slots, _, sel = item[:3]
+        return (f"> Strip chunk {bi}: {len(ta_slots)} tiles (anchor tiles "
+                f"{ta_slots[0]}..{ta_slots[-1]}), {len(sel)} pairs")
+
+    def ready(self, blk):
+        pass   # the tables were whole before the sweep began
+
+    def dispatch(self, bi, item):
+        """Launch chunk bi: exactly its tiles run and, compacted, exactly
+        its pairs' rows come back (no padding to gmaxt tiles or to a sel
+        capacity). meta marks a split group's chunks for fmt's merge:
+        "cont", then ("final", its first chunk)."""
+        ta_slots, tb_slots, sel, blk, rem = item
+        if rem and bi > self.run_last:
+            self.run_first, self.run_last = bi, bi + rem
+        meta = None
+        if self.run_last >= 0 and bi == self.run_last:
+            meta = ("final", self.run_first)
+            self.run_first = self.run_last = -1
+        elif bi < self.run_last:
+            meta = "cont"
+        # emission mode: flat cell-major for near-full chunks (host-side
+        # sel, no device gather); compacted rows otherwise
+        gc = len(ta_slots)
+        use_flat = (self.flat_fn is not None
+                    and len(sel) >= self.flat_util * gc * TA * TB)
+        m, spec = self.m, None
+        if m is not None:
+            # this row's tiles and the cells of sel in them; rank 0 puts
+            # every row's rows at their places
+            shares = compute.strip_shares(gc, sel, m.shard)
+            t_lo, t_hi, _, sel = shares[m.pi]
+            ta_slots, tb_slots = ta_slots[t_lo:t_hi], tb_slots[t_lo:t_hi]
+            spec = [(p * m.shard_ind, len(sh[2]), sh[2])
+                    for p, sh in enumerate(shares)]
+            if m.shard_ind > 1:
+                self.log.count("ind_strip_chunks")
+        args = self.tables + (torch.from_numpy(ta_slots).to(self.device),
+                              torch.from_numpy(tb_slots).to(self.device))
+        if use_flat:
+            return bi, blk, self.flat_fn(*args), meta, sel, spec, None
+        dev_out = self.fn(*args, torch.from_numpy(sel).to(self.device))
+        return bi, blk, dev_out, meta, None, spec, None
+
+
+class _GatherSweep:
+    """The gather sweep's part of the dispatch loop (items: the plan's
+    blocks): each block waits on the overlap ingest for its sites, then
+    compute.compute_block (its rung counted) or, under --shard_ind,
+    parallel.sweep's step; on a mesh each 'pairs' row takes its share of
+    the block (compute.split_bounds)."""
+
+    def __init__(self, pars, log, device, m, chunk, prec, gn_d, maf_d,
+                 eg_d, ingest):
+        self.pars, self.log, self.device, self.m = pars, log, device, m
+        self.ingest = ingest
+        if m is not None and m.shard_ind > 1:
+            ipl = pars.n_ind // m.shard_ind
+            cut = slice(m.ii * ipl, (m.ii + 1) * ipl)
+            gn_d, eg_d = gn_d[:, cut].contiguous(), eg_d[:, cut].contiguous()
+        self.tables = (gn_d, maf_d, eg_d)
+        self.extra = {"chunk": chunk, "prec": prec}
+
+    def plan(self, blocks):
+        """(PairBlock, PairBlock) pairs, made on the plan's prefetch
+        thread; the main thread's wait for each is `sweep: plan wait`."""
+        return self.log.spans_of("sweep: plan wait", (
+            (blk, blk) for blk in _prefetch_blocks(
+                self.log.spans_of("plan: block", blocks))))
+
+    def resumed(self, bi, blk, done_set, ckpt):
+        return bi in done_set
+
+    def describe(self, bi, blk):
+        return (f"> Block {bi}: anchors {blk.s1[0]}..{blk.s1[-1]}, "
+                f"{len(blk.s1)} pairs")
+
+    def ready(self, blk):
+        if self.ingest is not None:
+            # dispatch only once every site of the block is in
+            with self.log.span("sweep: ingest wait"):
+                self.tables = self.ingest.wait(int(blk.s2.max()) + 1)
+
+    def dispatch(self, bi, blk):
+        """Launch block bi: exactly its P pairs run and P rows come back
+        (no padding quantum)."""
+        m, P = self.m, len(blk.s1)
+        bnd = compute.split_bounds(P, 1 if m is None else m.shard)
+        p = 0 if m is None else m.pi
+        lo, hi = bnd[p], bnd[p + 1]
+        spec = None if m is None else [
+            (q * m.shard_ind, bnd[q + 1] - bnd[q], None)
+            for q in range(m.shard)]
+        sidx = torch.from_numpy(np.stack([blk.s1[lo:hi], blk.s2[lo:hi]])
+                                .astype(np.int32)).to(self.device)
+        gn_d, maf_d, eg_d = self.tables
+        if m is not None and m.shard_ind > 1:
+            self.log.count("ind_blocks")
+            dev_out = compute_block_ind(gn_d, eg_d, maf_d, sidx,
+                                        self.pars.ignore_miss_data, m)
+            return bi, blk, dev_out, None, None, spec, None
+        # the ladder's rung for this piece, as compute_block picks it
+        rung = pick_gather_kernel(self.pars.n_ind, gn_d.element_size(),
+                                  self.device, hi - lo)
+        self.log.count("rung_" + rung)
+        self.log.count("pairs_" + rung, hi - lo)
+        dev_out = compute.compute_block(gn_d, eg_d, maf_d, sidx,
+                                        self.pars.ignore_miss_data)
+        return bi, blk, dev_out, None, None, spec, rung
+
+
+def _columns(fm, im, maf, s1, s2, extend_out):
+    """Rows' output columns from their pull (hostcols._unpack), as writable
+    copies keyed like refine.StrictRefiner.refine_columns: f64, chi2 f32,
+    n_used and n_iter i32."""
+    dtypes = dict(n_iter=np.int32, n_used=np.int32, chi2=np.float32)
+    names = ("r2p", "f", "n_iter", "n_used", "hmaf1", "hmaf2", "D", "Dp",
+             "r2", "chi2")   # _unpack's order
+    return dict(((k, np.array(v, dtypes.get(k, np.float64)))
+                 for k, v in zip(names, _unpack(fm, im, extend_out))),
+                maf1=maf[s1], maf2=maf[s2])
+
+
+def _span_if(log, on, name):
+    return log.span(name) if on else contextlib.nullcontext()
+
+
+def format_rows(rw, maf, pars, prec, get_refiner, log, blk, fm, im,
+                rung=None):
+    """The fmt stage's derive and format of a block's (or a merged split
+    group's) rows -> the rows' bytes. rw: the RowWriter that formats. The
+    degenerate pairs (refine.degenerate_tiers) take
+    refine.repair_columns' values: as override columns of the one native
+    derive+format call, or, without the native library, written into the
+    unpacked columns of the one RowWriter.format_block call. rung: the
+    gather rung that took the block (rank 0's piece of it on a mesh), for
+    its counter."""
+    with log.span("sweep: fmt/tiers"):
+        n_iter = im[:, 0].astype(np.int32)
+        if im.shape[1] > 1:
+            n_used = im[:, 1].astype(np.int32)
+        else:
+            # slim layout (compute._imat): every pair used the whole
+            # cohort
+            n_used = np.full(im.shape[0], pars.n_ind, np.int32)
+            im = np.column_stack([n_iter, n_used])
+        its = int(n_iter.astype(np.int64).sum())
+        log.count("em_iterations", its)
+        if rung is not None:
+            log.count("em_iterations_" + rung, its)
+        if pars.verbose >= 2:
+            log.hist("em_iteration_histogram",
+                     np.bincount(np.clip(n_iter, 0, 100)))
+        tiers = degenerate_tiers(fm[:, 1:5], prec)
+    idx = np.flatnonzero(tiers)
+    fix = None
+    if len(idx):
+        s1, s2 = blk.s1[idx], blk.s2[idx]
+        with log.span("sweep: fmt/unpack"):
+            fix = _columns(fm[idx], im[idx], maf, s1, s2, pars.extend_out)
+        repair_columns(fix, tiers[idx], s1, s2, get_refiner, log,
+                       "sweep: fmt")
+    if rw.native:
+        # one native pass: D/D'/r2/hap-MAFs/chi2 derive inside the
+        # formatter's worker threads from (r2p, f) directly
+        with _span_if(log, fix is not None, "sweep: fmt/bulk"):
+            data = format_rows_derive(
+                rw.blob, rw.off, blk.s1, blk.s2, blk.dist, fm[:, 0],
+                fm[:, 1:5], maf[blk.s1], maf[blk.s2], n_used, n_iter,
+                pars.extend_out,
+                overrides=None if fix is None else (idx, fix))
+        if data is None:
+            # only reachable on an fm dtype mismatch — a code bug
+            raise RuntimeError("native derive formatter rejected the chunk")
+        return data
+    with _span_if(log, fix is not None, "sweep: fmt/rows"):
+        cols = _columns(fm, im, maf, blk.s1, blk.s2, pars.extend_out)
+        if fix is not None:
+            for k in cols:
+                cols[k][idx] = fix[k]
+        return rw.format_block(
+            blk.s1, blk.s2, blk.dist, cols["r2p"], cols["D"], cols["Dp"],
+            cols["r2"], n_used=cols["n_used"], maf1=cols["maf1"],
+            maf2=cols["maf2"], hap=cols["f"], hmaf1=cols["hmaf1"],
+            hmaf2=cols["hmaf2"], chi2=cols["chi2"], n_iter=cols["n_iter"])
+
+
+class _Emit:
+    """The emit pipeline on daemon threads, fed (bi, blk, dev_out, meta,
+    flat_sel, spec, rung) jobs by the dispatch loop. Rank 0 runs pull
+    (device results to host numpy), fmt (a split group's chunks merged
+    back, then format_rows) and write (rows, or a checkpoint shard); the
+    other ranks run send. FIFO queues keep rows in (s1, s2) order. The
+    heavy parts (device wait, native formatting, file IO) release the
+    GIL, so they overlap each other and the main thread's dispatch. A
+    stage's error ends it and the stages after it and lands in err."""
+
+    def __init__(self, log, m, fmt_rows=None, ckpt=None, out_fh=None):
+        self.log, self.m, self.fmt_rows = log, m, fmt_rows
+        self.ckpt, self.out_fh = ckpt, out_fh
+        self.err = []
+        self.pending = []   # pulled chunks of an in-flight split group
+        self.q = queue.Queue(maxsize=3)            # main -> pull / send
+        if m is None or m.rank == 0:
+            fmt_q = queue.Queue(maxsize=2)         # pull -> fmt
+            write_q = queue.Queue(maxsize=2)       # fmt -> write
+            self.threads = [
+                self._stage(self.q, fmt_q, self.pull, "ngsld-pull"),
+                self._stage(fmt_q, write_q, self.fmt, "ngsld-fmt"),
+                self._stage(write_q, None, self.write, "ngsld-write")]
+        else:
+            self.threads = [self._stage(self.q, None, self.send,
+                                        "ngsld-send")]
+
+    def close(self):
+        """The end of the jobs: wait for every stage to drain."""
+        self.q.put(None)
+        for t in self.threads:
+            t.join()
+
+    def _stage(self, in_q, out_q, fn, name):
+        def run():
+            try:
+                while (item := in_q.get()) is not None:
+                    try:
+                        res = fn(*item)
+                    except BaseException as e:
+                        self.err.append(e)
+                        while in_q.get() is not None:  # unblock the producer
+                            pass
+                        return
+                    # None: nothing to forward yet (fmt is accumulating a
+                    # split group)
+                    if out_q is not None and res is not None:
+                        out_q.put(res)
+            finally:
+                if out_q is not None:
+                    out_q.put(None)
+        t = threading.Thread(target=run, daemon=True, name=name)
+        t.start()
+        return t
+
+    def pull(self, bi, blk, dev_out, meta, flat_sel, spec, rung):
+        """Device results -> host numpy (waits for the block's kernels on
+        the current stream). Compacted strip chunks and gather blocks
+        bring exactly their live rows; flat strip chunks (flat_sel) bring
+        their whole tile rectangle and the sel permutation applies here as
+        a numpy take. On a mesh (spec: each 'pairs' row's sending rank,
+        rows and their places) the other rows' pieces arrive here, each
+        from the first rank of its row, and join rank 0's own."""
+        with self.log.span("sweep: result pull"):
+            fm = dev_out[0].cpu().numpy()
+            im = dev_out[1].cpu().numpy()
+            if flat_sel is not None:
+                fm, im = fm[flat_sel], im[flat_sel]
+        if spec is not None:
+            fm, im = _assemble(self.m, fm, im, spec)
+        return bi, blk, fm, im, meta, rung
+
+    def send(self, bi, blk, dev_out, *_):
+        """The pull stage of a rank other than 0: the first rank of each
+        row sends its piece to rank 0; the others' rows are the same."""
+        if self.m.ii == 0:
+            self.m.send_rows([dev_out[0].cpu().numpy(),
+                              dev_out[1].cpu().numpy()])
+
+    def fmt(self, bi, blk, fm, im, meta, rung):
+        """Derive and format a block's rows (format_rows). A split
+        anchor-tile group's chunks (strip sweep, partner span > gmaxt*TB
+        sites) arrive window-major; they accumulate here (meta="cont") and
+        merge back into global (s1, s2) row order when the final chunk
+        lands (meta=("final", its first chunk)); host memory for the merge
+        is O(the group's rows)."""
+        if meta == "cont":
+            self.pending.append((blk, fm, im))
+            return None
+        span0 = None
+        if meta is not None:
+            span0 = meta[1]
+            if self.pending:
+                parts = self.pending + [(blk, fm, im)]
+                self.pending = []
+                s1, s2, dist = (np.concatenate([getattr(p[0], k)
+                                                for p in parts])
+                                for k in ("s1", "s2", "dist"))
+                order = np.lexsort((s2, s1))
+                blk = PairBlock(s1=s1[order], s2=s2[order],
+                                dist=dist[order])
+                fm = np.concatenate([p[1] for p in parts])[order]
+                im = np.concatenate([p[2] for p in parts])[order]
+        with self.log.span("sweep: format"):
+            data = self.fmt_rows(blk, fm, im, rung)
+        return bi, data, span0
+
+    def write(self, bi, data, span0):
+        """Write rows, or commit a checkpoint shard. A merged split group
+        writes all its rows under its final bi, then commits empty
+        placeholder shards for the group's earlier bis (concatenate needs a
+        dense block range; a resume treats done(final bi) as the
+        group's)."""
+        with self.log.span("sweep: write"):
+            if self.ckpt is not None:
+                with self.ckpt.open_block(bi) as bfh:
+                    bfh.write(data)
+                self.ckpt.commit_block(bi)
+                for j in range(bi if span0 is None else span0, bi):
+                    with self.ckpt.open_block(j):
+                        pass
+                    self.ckpt.commit_block(j)
+            else:
+                try:
+                    self.out_fh.write(data)
+                except TypeError:
+                    self.out_fh.write(data.decode())
+
+
+def _dispatch_all(pars, log, m, mode, emit, blocks, done_set, ckpt):
+    """The dispatch loop, one for both sweep modes: walk mode's plan of
+    blocks, skip what a resume already has, dispatch the rest and hand
+    each to the emit pipeline; stop at a signal or an emit error, and
+    always shut the pipeline down. -> (blocks walked, interrupted, the
+    plan's digest)."""
+    lead = m is None or m.rank == 0
+    # the ranks' pair plans must agree: a digest of every block's pairs,
+    # compared at the end
+    digest = hashlib.sha256()
+    n_blocks = 0
+    interrupted = False
+    # the other ranks' stop is never armed: they stop when rank 0 ends them
+    with log.phase("compute: banded pair sweep", encloses=True), \
+            (GracefulStop(log) if lead
+             else contextlib.nullcontext(GracefulStop())) as gs:
+        try:
+            for bi, (blk, item) in enumerate(mode.plan(blocks)):
+                n_blocks = bi + 1
+                if gs.stopped or emit.err:
+                    interrupted = not emit.err
+                    break
+                if m is not None:
+                    digest.update(blk.s1.tobytes() + blk.s2.tobytes())
+                if mode.resumed(bi, item, done_set, ckpt):
+                    log.count("blocks_resumed")
+                    continue
+                log.count("pairs_emitted", len(blk.s1))
+                log.count("blocks_computed")
+                if pars.verbose >= 3:
+                    log.log(3, mode.describe(bi, item))
+                mode.ready(blk)
+                with log.span("sweep: dispatch"):
+                    job = mode.dispatch(bi, item)   # async on the device
+                with log.span("sweep: emit wait"):
+                    emit.q.put(job)
+        finally:
+            # always shut the pipeline down, even when the loop raises:
+            # stages blocked on get() would otherwise pin device buffers
+            with log.span("sweep: emit wait"):
+                emit.close()
+        if emit.err:
+            raise emit.err[0]
+    return n_blocks, interrupted, digest
+
+
 def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
            maf_d, eg_d, maf, pos_dist, labels, ingest):
     """_run_torch_body's sweep over rank 0's tables (shared with the other
     ranks here), or over the overlap ingest's as they fill."""
     dt = torch.float64 if prec == "f64" else torch.float32
     lead = m is None or m.rank == 0
-    n_shards = 1 if m is None else m.shard
-    shard_ind = 1 if m is None else m.shard_ind
     if m is not None:
         with log.phase("Tables to every rank (broadcast from rank 0)"):
             gn_d, maf_d, eg_d, maf, pos_dist = _share(
@@ -283,105 +799,22 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
     # zeros: at min_maf <= 0 their filter passes every site, and nothing
     # reads a site's MAF before the ingest has it
     maf_plan = maf if ingest is None else np.zeros(pars.n_sites)
-
     # every device receives the same share of a block (the reference's
     # rounding, so the block decomposition and the checkpoint fingerprint
     # match its run under the same flags)
+    n_shards = 1 if m is None else m.shard
     chunk = -(-int(pars.chunk_pairs) // n_shards) * n_shards
 
-    # ---- sweep-mode selection: dense strip-tile rectangles vs gathered
-    # pair blocks (ngsld_tpu/engine_block.py:286-334). Auto rule:
-    # effective utilization (live-cell fraction x sampling rate: sampled-
-    # out cells still burn EM compute) at least NGSLD_STRIP_MIN_UTIL, on a
-    # CUDA device. NGSLD_BLOCK_STRIP=1/0 forces on/off.
-    strip_mode = False
-    strip_env = os.environ.get("NGSLD_BLOCK_STRIP")
-    hi_b = None
-    if strip_env != "0" and prec == "f32":
-        with log.span("plan: strip plan"):
-            hi_b = band_limits(pos_dist, pars.max_kb_dist, pars.max_snp_dist)
-            ok_b = ~(maf_plan < pars.min_maf)
-            # padded to whole anchor tiles; pad sites are not ok. (The TPU
-            # engine adds one more all-dead partner tile to aim the padding
-            # slots of a fixed-size dispatch at; here a dispatch launches
-            # exactly its chunk's tiles.)
-            Sp_b = -(-pars.n_sites // TA) * TA
-            hi_p = np.zeros(Sp_b, np.int64)
-            hi_p[:pars.n_sites] = hi_b
-            ok_p = np.zeros(Sp_b, np.float32)
-            ok_p[:pars.n_sites] = ok_b
-            s_ta, s_tb, _, s_util = strip_plan(hi_p, ok_p, pars.n_sites, TA,
-                                               TB)
-        u_eff = s_util * pars.rnd_sample
-        min_util = float(os.environ.get("NGSLD_STRIP_MIN_UTIL", "0.08"))
-        strip_mode = len(s_ta) > 0 and (
-            strip_env == "1"
-            or (device.type == "cuda" and u_eff >= min_util))
-        if len(s_ta) and not strip_mode and pars.verbose >= 2:
-            log.log(2, f"==> strip sweep skipped: eff util {u_eff:.3f} < "
-                       f"{min_util} (gather path)")
-    if strip_mode:
-        if ingest is not None:
-            # the strip tables take the whole gn/eg tables (the upload
-            # still ran under the positions parse, the plan and the strip
-            # decision)
-            with log.phase("  gl ingest join (strip tables)", level=2):
-                gn_d, maf_d, eg_d = ingest.join_all()
-            ingest.tables = ()   # freed with the gather tables below
-        # past the resident kernel's cohort limit strip_em takes the
-        # streamed kernel, and the tables pad the individual axis to its
-        # chunk. With --shard_ind the step is parallel.strip_ind's (no
-        # kernel): the individual axis splits over the row in 8-aligned
-        # slices (ngsld_tpu/engine_block.py:342-345)
-        s_streamed = shard_ind == 1 and strip_streamed(pars.n_ind, device)
-        s_ialign = (8 * shard_ind if shard_ind > 1
-                    else strip_i_align(pars.n_ind, device))
-        with log.phase("strip tables (device)"):
-            pad = Sp_b - pars.n_sites
-            s_ga, s_gb, s_ea, s_eb = strip_tables(
-                torch.nn.functional.pad(gn_d, (0, 0, 0, 0, 0, pad),
-                                        value=1.0 / 3.0),
-                torch.nn.functional.pad(eg_d, (0, 0, 0, pad)), pars.n_ind,
-                i_align=s_ialign)
-            # the gather tables are dead weight in strip mode
-            del gn_d, eg_d, maf_d
-            if shard_ind > 1:
-                # this rank's slice of every record: the standardization
-                # above used the whole cohort's moments
-                ipl = s_ga.shape[2] // shard_ind
-                i_start = m.ii * ipl
-                cut = slice(i_start, i_start + ipl)
-                s_ga, s_gb = (s_ga[:, :, cut].contiguous(),
-                              s_gb[:, cut].contiguous())
-                s_ea, s_eb = (s_ea[:, cut].contiguous(),
-                              s_eb[cut].contiguous())
-        s_maf = torch.from_numpy(np.pad(
-            np.asarray(maf, np.float32), (0, pad),
-            constant_values=0.5)).to(device)
-        s_lo = torch.arange(1, Sp_b + 1, dtype=torch.int32, device=device)
-        s_hi = torch.from_numpy(hi_p.astype(np.int32)).to(device)
-        s_ok = torch.from_numpy(ok_p).to(device)
-        # per-dispatch budgets: up to GMAXT tiles (the device output f is
-        # (tiles, 4, TA, TB) f32, 67 MB at 256) and about CTARGET pairs per
-        # chunk: narrow-band groups batch together so a dispatch carries
-        # real work, oversized groups split into <= GMAXT-tile pieces
-        GMAXT = max(1, min(len(s_ta), int(os.environ.get(
-            "NGSLD_STRIP_TILES", "256"))))
-        # --shard: a chunk's tiles split over the 'pairs' rows, so its
-        # tile budget is a whole multiple of them (the reference's rule)
-        GMAXT = -(-GMAXT // n_shards) * n_shards
-        CTARGET = int(os.environ.get("NGSLD_STRIP_CTARGET", str(1 << 20)))
-        TA_TB = TA * TB
-        log.log(2, f"==> strip sweep: {len(s_ta)} tiles, chunk<= {GMAXT} "
-                   f"tiles/{CTARGET} pairs, util {s_util:.2f}"
-                   + (f", streamed kernel (I-chunk {s_ialign})"
-                      if s_streamed else ""))
-    elif shard_ind > 1:
-        # the gather step for --shard_ind: this rank's slice of the cohort
-        ipl = pars.n_ind // shard_ind
-        cut = slice(m.ii * ipl, (m.ii + 1) * ipl)
-        gn_d, eg_d = gn_d[:, cut].contiguous(), eg_d[:, cut].contiguous()
-
+    plan, hi_b = _strip_rule(pars, log, prec, device, maf_plan, pos_dist)
+    if plan is not None:
+        mode = _StripSweep(pars, log, device, m, plan, gn_d, eg_d, maf,
+                           ingest)
+    else:
+        mode = _GatherSweep(pars, log, device, m, chunk, prec, gn_d, maf_d,
+                            eg_d, ingest)
+    # the mode holds what it uses of the tables (the strip sweep none of
+    # the gather tables): a mesh rank's broadcast copies go with it
+    del gn_d, maf_d, eg_d
     # the in-band candidates the plan walks, before its MAF skip and
     # sampling (iter_pair_blocks' own counts), from the strip plan's band
     # limits where it made them
@@ -392,552 +825,32 @@ def _sweep(pars, out_fh, log, prec, device, m, get_refiner, gn_d,
         .sum()))
 
     ckpt = None
-    if pars.checkpoint:
+    if pars.checkpoint and lead:
         # the fingerprint pins the sweep decomposition (gather mode's
         # chunk, strip mode's tile-chunk geometry) and the EM precision:
-        # shards from another of either must not be mixed. "order": split
-        # groups merge to anchor-major rows under their final block index.
-        if strip_mode:
-            extra = {"mode": "strip", "ta": TA, "tb": TB, "gmaxt": GMAXT,
-                     "ctarget": CTARGET, "order": "anchor", "prec": prec}
-            if s_streamed:
-                # the streamed kernel's chunk sets its summation order
-                extra["ic"] = s_ialign
-        else:
-            extra = {"chunk": chunk, "prec": prec}
-        if lead:
-            ckpt = _Checkpoint(pars.checkpoint, pars, log, extra=extra)
-            # per-block RowWriters share one label blob (O(n_sites))
-            if get_lib() is not None:
-                labels = LabelBlob(*make_labels_blob(labels))
+        # shards from another of either must not be mixed
+        ckpt = _Checkpoint(pars.checkpoint, pars, log, extra=mode.extra)
+        # per-block RowWriters share one label blob (O(n_sites))
+        if get_lib() is not None:
+            labels = LabelBlob(*make_labels_blob(labels))
     # the blocks committed before this run, the same on every rank: a
     # resume skips them all alike
     done_set = ckpt.done_set() if ckpt is not None else set()
     if m is not None and pars.checkpoint:
         done_set = m.broadcast_object(done_set if lead else None)
-    writer = fmt_rw = None
+    fmt_rows = None
     if lead:
+        rw = RowWriter(out_fh if ckpt is None else None, labels,
+                       pars.extend_out)
         if ckpt is None:
-            writer = RowWriter(out_fh, labels, pars.extend_out)
-            writer.write_header()
-        fmt_rw = writer if writer is not None \
-            else RowWriter(None, labels, pars.extend_out)
-
-    def pull(bi, blk, dev_out, meta=None, flat_sel=None, spec=None,
-             rung=None):
-        """Stage 1: device results -> host numpy (waits for the block's
-        kernels on the current stream). Compacted strip chunks and gather
-        blocks bring exactly their live rows; flat strip chunks (flat_sel)
-        bring their whole tile rectangle and the sel permutation applies
-        here as a numpy take. On a mesh (spec: each 'pairs' row's sending
-        rank, rows and their places) the other rows' pieces arrive here,
-        each from the first rank of its row, and join rank 0's own.
-        rung: the gather rung that took the block (rank 0's piece of it
-        on a mesh), passed on to fmt's counters."""
-        with log.span("sweep: result pull"):
-            fm = dev_out[0].cpu().numpy()
-            im = dev_out[1].cpu().numpy()
-            if flat_sel is not None:
-                fm, im = fm[flat_sel], im[flat_sel]
-        if spec is not None:
-            fm, im = _assemble(m, fm, im, spec)
-        return bi, blk, fm, im, meta, rung
-
-    def send(bi, blk, dev_out, meta=None, flat_sel=None, spec=None,
-             rung=None):
-        """The pull stage of a rank other than 0: the first rank of each
-        row sends its piece to rank 0; the others' rows are the same."""
-        if m.ii == 0:
-            m.send_rows([dev_out[0].cpu().numpy(),
-                         dev_out[1].cpu().numpy()])
-
-    pending = []   # pulled chunks of an in-flight split anchor group
-
-    def fmt(bi, blk, fm, im, meta=None, rung=None):
-        """Stage 2 (CPU): derive stats, format rows to bytes. Degenerate
-        pairs (refine.degenerate_tiers) take the strict recompute (tier 1)
-        or the f64 re-derive (tier 2) as override columns of the same
-        native derive+format call.
-
-        A split anchor-tile group's chunks (strip sweep, partner span >
-        GMAXT*TB sites) arrive window-major; they accumulate here
-        (meta="cont") and merge back into global (s1, s2) row order when
-        the final chunk lands (meta=("final", run_first)); host memory
-        for the merge is O(the group's rows)."""
-        span0 = None
-        if meta == "cont":
-            pending.append((blk, fm, im))
-            return _PENDING
-        if meta is not None:
-            span0 = meta[1]
-            if pending:
-                blks = [p[0] for p in pending] + [blk]
-                blk = PairBlock(
-                    s1=np.concatenate([b.s1 for b in blks]),
-                    s2=np.concatenate([b.s2 for b in blks]),
-                    dist=np.concatenate([b.dist for b in blks]))
-                fm = np.concatenate([p[1] for p in pending] + [fm])
-                im = np.concatenate([p[2] for p in pending] + [im])
-                pending.clear()
-                order = np.lexsort((blk.s2, blk.s1))
-                blk = PairBlock(s1=blk.s1[order], s2=blk.s2[order],
-                                dist=blk.dist[order])
-                fm, im = fm[order], im[order]
-        with log.span("sweep: format"):
-            data = format_rows(blk, fm, im, rung)
-        return bi, data, span0
-
-    def format_rows(blk, fm, im, rung=None):
-        """fmt's derive and format of a block's (or merged group's) rows
-        -> the rows' bytes. rung: see pull."""
-        with log.span("sweep: fmt/tiers"):
-            n_iter = im[:, 0].astype(np.int32)
-            if im.shape[1] > 1:
-                n_used = im[:, 1].astype(np.int32)
-            else:
-                # slim layout (compute._imat): every pair used the whole
-                # cohort
-                n_used = np.full(im.shape[0], pars.n_ind, np.int32)
-                im = np.column_stack([n_iter, n_used])
-            its = int(n_iter.astype(np.int64).sum())
-            log.count("em_iterations", its)
-            if rung is not None:
-                log.count("em_iterations_" + rung, its)
-            if pars.verbose >= 2:
-                log.hist("em_iteration_histogram",
-                         np.bincount(np.clip(n_iter, 0, 100)))
-            tiers = degenerate_tiers(fm[:, 1:5], prec)
-            t1, t2 = tiers == 1, tiers == 2
-        data = None
-        if tiers.any():
-            log.count("pairs_refined", int(t1.sum()))
-            log.count("pairs_rederived", int(t2.sum()))
-            use_native = bool(fmt_rw.native)
-            if use_native:
-                idx = np.flatnonzero(tiers)
-                s1s, s2s, dists = blk.s1[idx], blk.s2[idx], blk.dist[idx]
-                fms, ims = fm[idx], im[idx]
-                t1s, t2s = t1[idx], t2[idx]
-            else:
-                idx = None
-                s1s, s2s, dists = blk.s1, blk.s2, blk.dist
-                fms, ims = fm, im
-                t1s, t2s = t1, t2
-            with log.span("sweep: fmt/unpack"):
-                r2p, f, n_iter64, n_used64, hmaf0, hmaf1, D, Dp, r2, chi2 \
-                    = _unpack(fms, ims, pars.extend_out)
-                cols = dict(      # copies: fm-backed views are read-only
-                    r2p=np.array(r2p, np.float64),
-                    f=np.array(f, np.float64),
-                    hmaf1=np.array(hmaf0, np.float64),
-                    hmaf2=np.array(hmaf1, np.float64),
-                    D=np.array(D, np.float64),
-                    Dp=np.array(Dp, np.float64),
-                    r2=np.array(r2, np.float64),
-                    chi2=np.array(chi2, np.float32),
-                    maf1=maf[s1s].copy(), maf2=maf[s2s].copy(),
-                    n_iter=np.array(n_iter64, np.int32),
-                    n_used=np.array(n_used64, np.int32))
-            if t2s.any():
-                with log.span("sweep: fmt/rederive"):
-                    pol = derive_columns_f64(cols["f"][t2s])
-                    for k in pol:
-                        cols[k][t2s] = pol[k]
-            if t1s.any():
-                with log.span("sweep: fmt/refine"):
-                    ref = get_refiner().refine_columns(s1s[t1s], s2s[t1s])
-                    for k in cols:
-                        cols[k][t1s] = ref[k]
-            if use_native:
-                with log.span("sweep: fmt/bulk"):
-                    data = format_rows_derive(
-                        fmt_rw.blob, fmt_rw.off, blk.s1, blk.s2, blk.dist,
-                        fm[:, 0], fm[:, 1:5], maf[blk.s1], maf[blk.s2],
-                        n_used, n_iter, pars.extend_out,
-                        overrides=(idx, cols))
-                    if data is None:
-                        # only reachable on an fm dtype mismatch — a code
-                        # bug
-                        raise RuntimeError(
-                            "native derive formatter rejected the chunk")
-            else:
-                with log.span("sweep: fmt/rows"):
-                    data = fmt_rw.format_block(
-                        s1s, s2s, dists, cols["r2p"], cols["D"], cols["Dp"],
-                        cols["r2"], n_used=cols["n_used"], maf1=cols["maf1"],
-                        maf2=cols["maf2"], hap=cols["f"], hmaf1=cols["hmaf1"],
-                        hmaf2=cols["hmaf2"], chi2=cols["chi2"],
-                        n_iter=cols["n_iter"])
-        elif fmt_rw.native:
-            # single native pass: D/D'/r2/hap-MAFs/chi2 derive inside the
-            # formatter's worker threads from (r2p, f) directly
-            data = format_rows_derive(
-                fmt_rw.blob, fmt_rw.off, blk.s1, blk.s2, blk.dist,
-                fm[:, 0], fm[:, 1:5], maf[blk.s1], maf[blk.s2], n_used,
-                n_iter, pars.extend_out)
-        if data is None:
-            r2p, f, n_iter64, n_used64, hmaf0, hmaf1, D, Dp, r2, chi2 \
-                = _unpack(fm, im, pars.extend_out)
-            data = fmt_rw.format_block(
-                blk.s1, blk.s2, blk.dist, r2p, D, Dp, r2,
-                n_used=n_used64.astype(np.int32), maf1=maf[blk.s1],
-                maf2=maf[blk.s2], hap=f, hmaf1=hmaf0, hmaf2=hmaf1,
-                chi2=chi2, n_iter=n_iter64.astype(np.int32))
-        return data
-
-    def write(bi, data, span0=None):
-        """Stage 3 (disk IO): write rows, or commit a checkpoint shard.
-
-        A merged split group writes all its rows under its FINAL bi, then
-        commits empty placeholder shards for the run's earlier bis
-        (concatenate needs a dense block range; resume treats
-        done(final_bi) as group-done and re-ensures placeholders)."""
-        with log.span("sweep: write"):
-            if ckpt is not None:
-                with ckpt.open_block(bi) as bfh:
-                    bfh.write(data)
-                ckpt.commit_block(bi)
-                if span0 is not None:
-                    for j in range(span0, bi):
-                        with ckpt.open_block(j):
-                            pass
-                        ckpt.commit_block(j)
-            else:
-                try:
-                    out_fh.write(data)
-                except TypeError:
-                    out_fh.write(data.decode())
-
-    # 3-stage emit pipeline on daemon threads (pull, fmt, write); FIFO
-    # queues keep rows in (s1, s2) order. The heavy parts (device wait,
-    # native formatting, file IO) release the GIL, so they overlap each
-    # other and the main thread's dispatch.
-    emit_q = queue.Queue(maxsize=3)   # main -> pull
-    fmt_q = queue.Queue(maxsize=2)    # pull -> fmt
-    write_q = queue.Queue(maxsize=2)  # fmt -> write
-    emit_err = []
-
-    def _stage(in_q, out_q, fn, name):
-        def run():
-            while True:
-                item = in_q.get()
-                if item is None:
-                    if out_q is not None:
-                        out_q.put(None)
-                    return
-                try:
-                    res = fn(*item)
-                except BaseException as e:
-                    emit_err.append(e)
-                    while in_q.get() is not None:  # unblock the producer
-                        pass
-                    if out_q is not None:
-                        out_q.put(None)
-                    return
-                if res is _PENDING:
-                    continue   # fmt is accumulating a split group
-                if out_q is not None:
-                    out_q.put(res)
-        t = threading.Thread(target=run, daemon=True, name=name)
-        t.start()
-        return t
-
-    if lead:
-        stages = [_stage(emit_q, fmt_q, pull, "ngsld-pull"),
-                  _stage(fmt_q, write_q, fmt, "ngsld-fmt"),
-                  _stage(write_q, None, write, "ngsld-write")]
-    else:
-        stages = [_stage(emit_q, None, send, "ngsld-send")]
-    # the ranks' pair plans must agree: a digest of every block's pairs,
-    # compared at the end
-    digest = hashlib.sha256()
-    n_blocks = 0
-    interrupted = False
-
-    with log.phase("compute: banded pair sweep", encloses=True), \
-            (GracefulStop(log) if lead else _NoStop()) as gs:
-        if strip_mode:
-            use_i16 = pars.n_ind <= 32767
-            if shard_ind > 1:
-                # ('pairs', 'ind'): parallel.strip_ind's step, one
-                # all-reduce over the row an EM iteration
-                strip_fn = functools.partial(
-                    strip_compute_ind, n_ind=pars.n_ind, i_start=i_start,
-                    mesh=m, ignore_miss=pars.ignore_miss_data,
-                    use_i16=use_i16)
-                log.log(2, "==> strip sweep: ('pairs', 'ind') mesh, one "
-                           "all-reduce over 'ind' an EM iteration")
-            else:
-                strip_fn = compute.strip_compute_fn(
-                    pars.n_ind, pars.ignore_miss_data, use_i16)
-            # flat cell-major emission for near-full chunks: one relayout
-            # on the device and a host-side numpy take in the (pipelined)
-            # pull stage instead of the device sel gather. Pull bytes then
-            # scale with CELLS, so only chunks with live/cells >= the
-            # threshold qualify. NGSLD_STRIP_EMIT=compact|flat|auto. One
-            # device only (:724-725).
-            strip_flat_fn = None
-            flat_util = 1.1
-            emit_mode = os.environ.get("NGSLD_STRIP_EMIT", "auto")
-            if emit_mode != "compact" and m is None:
-                strip_flat_fn = compute.strip_flat_fn(
-                    pars.n_ind, pars.ignore_miss_data, use_i16)
-                flat_util = (-1.0 if emit_mode == "flat" else float(
-                    os.environ.get("NGSLD_STRIP_FLAT_UTIL", "0.92")))
-
-            def strip_chunks():
-                """Regroup the banded pair stream (iter_pair_blocks, the
-                SAME plan source as the gather sweep, so the pair sets are
-                identical by construction, sampling included) by anchor
-                tile; BATCH whole anchor-tile groups (splitting oversized
-                ones) into dispatch chunks of <= GMAXT tiles / about
-                CTARGET pairs. Yields (ta_slots, tb_slots, sel, PairBlock,
-                rem): rem > 0 marks a chunk whose anchor-tile group
-                continues for `rem` more chunks; its rows are
-                window-major, and the emit pipeline merges the whole run
-                back into global (s1, s2) order before formatting (a split
-                group's non-final pieces span exactly GMAXT tiles, so they
-                never share a chunk with anything else)."""
-                pend = []      # stream pieces of the CURRENT group
-                cur = -1
-                acc = []       # whole group-pieces of the open chunk
-                acc_tiles = acc_pairs = 0
-
-                def flush(rem=0):
-                    nonlocal acc, acc_tiles, acc_pairs
-                    ta_l, tb_l, sels, cols = [], [], [], []
-                    off = 0
-                    for (k, j0, gc, a, b, d) in acc:
-                        ta_l.append(np.full(gc, k, np.int32))
-                        tb_l.append(np.arange(j0, j0 + gc, dtype=np.int32))
-                        sels.append((((off + b // TB - j0) * TA
-                                      + (a - k * TA)) * TB
-                                     + b % TB).astype(np.int32))
-                        cols.append((a, b, d))
-                        off += gc
-                    acc, acc_tiles, acc_pairs = [], 0, 0
-                    return (np.concatenate(ta_l), np.concatenate(tb_l),
-                            np.concatenate(sels),
-                            PairBlock(
-                                s1=np.concatenate([c[0] for c in cols]),
-                                s2=np.concatenate([c[1] for c in cols]),
-                                dist=np.concatenate([c[2] for c in cols])),
-                            rem)
-
-                def add_group(k, a, b, d):
-                    """Split the group at GMAXT-tile partner windows
-                    (window-major: each tile computes once), then pack
-                    pieces into chunks. Every non-final piece spans
-                    exactly GMAXT tiles, fills its own chunk and is
-                    flushed immediately with rem = pieces of this group
-                    still to come; the final piece batches with following
-                    groups as usual (rem=0)."""
-                    nonlocal acc_tiles, acc_pairs
-                    j_end = max(k + 1, -(-int(b.max() + 1) // TB))
-                    pieces = []
-                    for c0 in range(k, j_end, GMAXT):
-                        c1 = min(c0 + GMAXT, j_end)
-                        m = (b >= c0 * TB) & (b < c1 * TB)
-                        if not m.any():
-                            continue
-                        pieces.append((k, c0, c1 - c0, a[m], b[m], d[m]))
-                    for pi, piece in enumerate(pieces):
-                        rem = len(pieces) - 1 - pi
-                        if acc and (acc_tiles + piece[2] > GMAXT
-                                    or acc_pairs + len(piece[3]) > CTARGET):
-                            yield flush()
-                        acc.append(piece)
-                        acc_tiles += piece[2]
-                        acc_pairs += len(piece[3])
-                        if rem:
-                            yield flush(rem)
-
-                for blk0 in iter_pair_blocks(pars, maf_plan, pos_dist,
-                                             block_pairs=chunk):
-                    ks = blk0.s1 // TA
-                    edges = np.r_[0, np.flatnonzero(np.diff(ks)) + 1,
-                                  len(ks)]
-                    for e0, e1 in zip(edges[:-1], edges[1:]):
-                        k = int(ks[e0])
-                        part = (blk0.s1[e0:e1], blk0.s2[e0:e1],
-                                blk0.dist[e0:e1])
-                        if k != cur and pend:
-                            grp = [np.concatenate(x) for x in zip(*pend)]
-                            pend.clear()
-                            yield from add_group(cur, *grp)
-                        cur = k
-                        pend.append(part)
-                if pend:
-                    grp = [np.concatenate(x) for x in zip(*pend)]
-                    yield from add_group(cur, *grp)
-                if acc:
-                    yield flush()
-
-            bi = -1
-            skip_until = -1   # resumed split-group fast-forward
-            run_first = run_last = -1  # in-flight split-group span
-            try:
-                for item in _prefetch_blocks(
-                        log.spans_of("plan: block", strip_chunks()), depth=2):
-                    ta_slots, tb_slots, sel, blk, rem = item
-                    bi += 1
-                    n_blocks = bi + 1
-                    if gs.stopped or emit_err:
-                        interrupted = not emit_err
-                        break
-                    if m is not None:
-                        digest.update(blk.s1.tobytes() + blk.s2.tobytes())
-                    if bi <= skip_until:
-                        log.count("blocks_resumed")
-                        continue
-                    if pars.checkpoint and bi > run_last:
-                        if rem and bi + rem in done_set:
-                            # the whole split group was committed as one
-                            # merged shard at its final bi; the earlier
-                            # bis are empty placeholders: (re)commit any
-                            # the writer did not reach
-                            for j in range(bi, bi + rem):
-                                if lead and not ckpt.done(j):
-                                    with ckpt.open_block(j):
-                                        pass
-                                    ckpt.commit_block(j)
-                            skip_until = bi + rem
-                            log.count("blocks_resumed")
-                            continue
-                        if not rem and bi in done_set:
-                            log.count("blocks_resumed")
-                            continue
-                    if rem and bi > run_last:
-                        run_first, run_last = bi, bi + rem
-                    if run_last >= 0 and bi == run_last:
-                        meta = ("final", run_first)
-                        run_first = run_last = -1
-                    elif bi < run_last:
-                        meta = "cont"
-                    else:
-                        meta = None
-                    P = len(sel)
-                    gc = len(ta_slots)
-                    log.count("pairs_emitted", P)
-                    log.count("blocks_computed")
-                    if pars.verbose >= 3:
-                        log.log(3, f"> Strip chunk {bi}: {gc} tiles (anchor "
-                                   f"tiles {ta_slots[0]}..{ta_slots[-1]}), "
-                                   f"{P} pairs")
-                    # emission mode: flat cell-major for near-full chunks
-                    # (host-side sel, no device gather); compacted rows
-                    # otherwise
-                    use_flat = (strip_flat_fn is not None
-                                and P >= flat_util * gc * TA_TB)
-                    with log.span("sweep: dispatch"):
-                        spec = None
-                        if m is not None:
-                            # this row's tiles and the cells of sel in them;
-                            # rank 0 puts every row's rows at their places
-                            shares = compute.strip_shares(gc, sel, n_shards)
-                            t_lo, t_hi, _, sel = shares[m.pi]
-                            ta_slots = ta_slots[t_lo:t_hi]
-                            tb_slots = tb_slots[t_lo:t_hi]
-                            spec = [(p * shard_ind, len(sh[2]), sh[2])
-                                    for p, sh in enumerate(shares)]
-                            if shard_ind > 1:
-                                log.count("ind_strip_chunks")
-                        # exactly the chunk's tiles launch and, compacted,
-                        # exactly P rows come back (no padding to GMAXT tiles
-                        # or to a sel capacity)
-                        args = (s_ga, s_gb, s_ea, s_eb, s_maf, s_maf, s_lo,
-                                s_hi, s_ok, s_ok,
-                                torch.from_numpy(ta_slots).to(device),
-                                torch.from_numpy(tb_slots).to(device))
-                        if use_flat:
-                            dev_out = strip_flat_fn(*args)   # async
-                        else:
-                            dev_out = strip_fn(
-                                *args, torch.from_numpy(sel).to(device))
-                    with log.span("sweep: emit wait"):
-                        emit_q.put((bi, blk, dev_out, meta,
-                                    sel if use_flat else None, spec))
-            finally:
-                with log.span("sweep: emit wait"):
-                    emit_q.put(None)
-                    for t in stages:
-                        t.join()
-            if emit_err:
-                raise emit_err[0]
-        else:
-            blocks_it = enumerate(_prefetch_blocks(log.spans_of(
-                "plan: block", iter_pair_blocks(pars, maf_plan, pos_dist,
-                                                block_pairs=chunk))))
-            try:
-                while True:
-                    with log.span("sweep: plan wait"):
-                        bi, blk = next(blocks_it, (None, None))
-                    if blk is None:
-                        break
-                    n_blocks = bi + 1
-                    if gs.stopped or emit_err:
-                        interrupted = not emit_err
-                        break
-                    if m is not None:
-                        digest.update(blk.s1.tobytes() + blk.s2.tobytes())
-                    if bi in done_set:
-                        log.count("blocks_resumed")
-                        continue
-                    P = len(blk.s1)
-                    log.count("pairs_emitted", P)
-                    log.count("blocks_computed")
-                    if pars.verbose >= 3:
-                        log.log(3, f"> Block {bi}: anchors "
-                                   f"{blk.s1[0]}..{blk.s1[-1]}, {P} pairs")
-                    if ingest is not None:
-                        # dispatch only once every site of the block is in
-                        with log.span("sweep: ingest wait"):
-                            gn_d, maf_d, eg_d = ingest.wait(
-                                int(blk.s2.max()) + 1)
-                    with log.span("sweep: dispatch"):
-                        # this row's contiguous piece of the block (all of it
-                        # on one device)
-                        bnd = compute.split_bounds(P, n_shards)
-                        lo_p = bnd[0 if m is None else m.pi]
-                        hi_p = bnd[1 if m is None else m.pi + 1]
-                        spec = None if m is None else [
-                            (p * shard_ind, bnd[p + 1] - bnd[p], None)
-                            for p in range(n_shards)]
-                        # one fused (2, P) index upload per block; exactly P
-                        # pairs launch and P rows come back (no padding
-                        # quantum)
-                        sidx = torch.from_numpy(np.stack(
-                            [blk.s1[lo_p:hi_p], blk.s2[lo_p:hi_p]]).astype(
-                                np.int32)).to(device)
-                        rung = None
-                        if shard_ind > 1:
-                            log.count("ind_blocks")
-                            dev_out = compute_block_ind(
-                                gn_d, eg_d, maf_d, sidx, pars.ignore_miss_data,
-                                m)
-                        else:
-                            # the ladder's rung for this piece, as
-                            # compute_block picks it
-                            rung = pick_gather_kernel(
-                                pars.n_ind, gn_d.element_size(), device,
-                                hi_p - lo_p)
-                            log.count("rung_" + rung)
-                            log.count("pairs_" + rung, hi_p - lo_p)
-                            dev_out = compute.compute_block(
-                                gn_d, eg_d, maf_d, sidx,
-                                pars.ignore_miss_data)  # async
-                    with log.span("sweep: emit wait"):
-                        emit_q.put((bi, blk, dev_out, None, None, spec,
-                                    rung))
-            finally:
-                # always shut the pipeline down, even when the loop raises:
-                # stages blocked on get() would otherwise pin device buffers
-                with log.span("sweep: emit wait"):
-                    emit_q.put(None)
-                    for t in stages:
-                        t.join()
-            if emit_err:
-                raise emit_err[0]
+            rw.write_header()
+        fmt_rows = functools.partial(format_rows, rw, maf, pars, prec,
+                                     get_refiner, log)
+    emit = _Emit(log, m, fmt_rows, ckpt, out_fh)
+    n_blocks, interrupted, digest = _dispatch_all(
+        pars, log, m, mode, emit,
+        iter_pair_blocks(pars, maf_plan, pos_dist, block_pairs=chunk),
+        done_set, ckpt)
 
     if ingest is not None and not interrupted:
         # a tail-of-file read error (NaN, EOF) surfaces even when no block

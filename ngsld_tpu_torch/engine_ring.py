@@ -25,9 +25,14 @@ from .parallel.ring import (ring_subblock_taker, ring_subblock_taker_strip,
                             ring_sweep_stepper_strip)
 from .plan.band import band_limits, child_seeds, contig_positions
 from .plan.strips import TA
-from .refine import (StrictRefiner, degenerate_tiers, derive_columns_f64,
-                     knife_edge_sites)
+from .refine import (StrictRefiner, degenerate_tiers, knife_edge_sites,
+                     repair_columns)
 from .utils.signals import GracefulStop
+
+# the narrow-band auto-route's cap on the tables' bytes (sites x
+# individuals x 16): past it the block engine's rank 0 would hold them
+# twice (the reference's design value, sized for a 16 GB TPU chip)
+AUTOROUTE_MAX_BYTES = 4e9
 
 
 class RingNarrowBand(RuntimeError):
@@ -159,8 +164,7 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
         # on several nodes (the block engine's rank 0 loads the whole
         # table), an explicit --ring_sub (the user is hand-tuning the
         # ring), a resumed ring checkpoint, tables too big to hold twice
-        # (NGSLD_AUTOROUTE_MEM, the reference's design value),
-        # NGSLD_RING_AUTOROUTE=0.
+        # (AUTOROUTE_MAX_BYTES), NGSLD_RING_AUTOROUTE=0.
         if ((m is None or not m.nodes)
                 and not getattr(pars, "ring_sub", 0)
                 and os.environ.get("NGSLD_RING_AUTOROUTE") != "0"):
@@ -173,8 +177,7 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
                 except Exception:
                     ring_ckpt = True   # unreadable: don't reroute blindly
             tbl_bytes = float(pars.n_sites) * pars.n_ind * 16.0
-            mem_cap = float(os.environ.get("NGSLD_AUTOROUTE_MEM", "4e9"))
-            if not ring_ckpt and tbl_bytes <= mem_cap:
+            if not ring_ckpt and tbl_bytes <= AUTOROUTE_MAX_BYTES:
                 hi_r = band_limits(pos_dist, pars.max_kb_dist,
                                    pars.max_snp_dist)
                 live_w = np.maximum(
@@ -216,13 +219,9 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
                 refiner = StrictRefiner(pars)
             return refiner
 
-        no_refine = os.environ.get("NGSLD_REFINE") == "0"
-
         # pair-set stability: knife-edge sites take the strict f64 MAF so
         # the band masks below can never flip vs the reference
-        # (NGSLD_REFINE=0: no repair of any kind)
-        ks = (np.empty(0, np.int64) if no_refine
-              else knife_edge_sites(maf, pars.min_maf, prec))
+        ks = knife_edge_sites(maf, pars.min_maf, prec)
         if len(ks):
             maf[ks] = get_refiner().exact_maf(ks)
             log.log(2, f"==> strict MAF refinement: {len(ks)} knife-edge "
@@ -549,7 +548,7 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
                 total = sum(len(x) for x in mms)
                 if total == 0:
                     continue
-                if not pars.in_bin and not no_refine:
+                if not pars.in_bin:
                     # gz-text inputs: prime the refiner's row caches for
                     # ALL of this block's fragile sites in ONE streaming
                     # parse (per-chunk priming would re-decompress the
@@ -601,32 +600,16 @@ def _run_torch_ring(pars, out_fh, log, prec: str, device: torch.device,
                                 else np.full(len(cat), pars.n_ind,
                                              np.int32)),
                         maf1=maf[af], maf2=maf[pf])
-                    tiers = (np.zeros(len(cat), np.uint8) if no_refine
-                             else degenerate_tiers(
-                                 cat["f"], tier_prec,
-                                 extra_nonfinite=(Dp, r2)))
-                    t1, t2 = tiers == 1, tiers == 2
+                    tiers = degenerate_tiers(cat["f"], tier_prec,
+                                             extra_nonfinite=(Dp, r2))
                     if tiers.any():
-                        # tier 1: bit-exact strict recompute; tier 2: f64
-                        # re-derive of the stat columns from the raw
-                        # frequencies; the chunk widens to f64 so one
-                        # formatter call emits all populations
-                        log.count("pairs_refined", int(t1.sum()))
-                        log.count("pairs_rederived", int(t2.sum()))
+                        # the chunk widens to f64 (maf1/maf2 are copies
+                        # already) so one formatter call emits the
+                        # repaired rows with the rest
                         for k in ("r2p", "D", "Dp", "r2", "f",
                                   "hmaf1", "hmaf2"):
                             cols[k] = np.array(cols[k], np.float64)
-                        cols["maf1"] = cols["maf1"].copy()
-                        cols["maf2"] = cols["maf2"].copy()
-                        if t2.any():
-                            pol = derive_columns_f64(cols["f"][t2])
-                            for k in pol:
-                                cols[k][t2] = pol[k]
-                        if t1.any():
-                            ref = get_refiner().refine_columns(af[t1],
-                                                               pf[t1])
-                            for k in cols:
-                                cols[k][t1] = ref[k]
+                        repair_columns(cols, tiers, af, pf, get_refiner, log)
                     writer.write_block(
                         af, pf, dist, cols["r2p"], cols["D"], cols["Dp"],
                         cols["r2"], n_used=cols["n_used"],

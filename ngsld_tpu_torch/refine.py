@@ -11,13 +11,14 @@ Two failure modes of the fast device path are repaired here:
    threshold get their MAF recomputed with the bit-exact strict estimator
    (strict.est_maf_all), so the pair SET always matches the reference.
 
-2. **Degenerate LD statistics** (`degenerate_mask` +
+2. **Degenerate LD statistics** (`degenerate_tiers` +
    `StrictRefiner.refine_columns`): Dp, r2 and chi2 divide by haplotype-
    frequency products that can be ~0 (monomorphic-ish sites, D ~ 0). A
    ~1e-6 EM wobble then moves the printed value arbitrarily (or flips
    inf/nan vs finite). Flagged pairs are recomputed end-to-end with the
    strict pipeline (read rows -> call_geno -> est_maf -> EM -> stats), so
-   their emitted values are byte-exact with the reference's.
+   their emitted values are byte-exact with the reference's; both
+   engines apply the tiers through `repair_columns`.
 
 Only the NEEDED site rows are re-read from the GENO file (binary: direct
 seeks; gz-text: one streaming parse keeping the wanted rows), so the cost
@@ -26,6 +27,7 @@ is O(flagged), not O(table).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -254,12 +256,6 @@ def degenerate_tiers(f: np.ndarray, prec: str,
     return tier
 
 
-def degenerate_mask(f: np.ndarray, prec: str = "f64",
-                    extra_nonfinite=()) -> np.ndarray:
-    """Any-tier flag (see degenerate_tiers)."""
-    return degenerate_tiers(f, prec, extra_nonfinite) > 0
-
-
 def derive_columns_f64(f_raw) -> dict:
     """f64 VALUE repair for tier-2 pairs: re-derive the f-dependent
     columns (D/D'/r2/hap-MAFs/chi2, ngsLD.cpp:295-349) in f64 from the
@@ -279,6 +275,34 @@ def derive_columns_f64(f_raw) -> dict:
     chi2 = strict.chi2_batch(f)
     return dict(f=f, hmaf1=hmaf0, hmaf2=hmaf1, D=D, Dp=Dp, r2=r2,
                 chi2=chi2)
+
+
+def repair_columns(cols: dict, tiers, s1, s2, get_refiner, log,
+                   span_prefix=None) -> None:
+    """Repair degenerate rows in place: tier 2 (degenerate_tiers)
+    re-derived in f64 (derive_columns_f64), tier 1 recomputed by the strict
+    pipeline (StrictRefiner.refine_columns). cols: the rows' writable
+    columns keyed like refine_columns (f64; chi2 f32, n_used/n_iter i32);
+    tiers, s1, s2: the same rows'. Counts pairs_refined/pairs_rederived;
+    span_prefix names the two repairs' spans (`<prefix>/rederive`,
+    `<prefix>/refine`), none without it."""
+    def span(name):
+        return (contextlib.nullcontext() if span_prefix is None
+                else log.span(f"{span_prefix}/{name}"))
+
+    t1, t2 = tiers == 1, tiers == 2
+    log.count("pairs_refined", int(t1.sum()))
+    log.count("pairs_rederived", int(t2.sum()))
+    if t2.any():
+        with span("rederive"):
+            pol = derive_columns_f64(cols["f"][t2])
+            for k in pol:
+                cols[k][t2] = pol[k]
+    if t1.any():
+        with span("refine"):
+            ref = get_refiner().refine_columns(s1[t1], s2[t1])
+            for k in cols:
+                cols[k][t1] = ref[k]
 
 
 class StrictRefiner:

@@ -1,9 +1,10 @@
 """The port's CLI end to end on the CPU (asked for with NGSLD_PLATFORM=cpu;
 f64, the kernels' plain versions): against --engine strict under the f64
 column contract on the matrix of tests/test_engine.py:77-101, against the
-JAX engine (run_jax, CPU f64), through a checkpoint kill-and-resume, with
-JAX and the JAX package blocked from import, refusing the options the
-port does not implement yet, and refusing to run on the CPU unasked."""
+JAX engine (run_jax, CPU f64), through a checkpoint kill-and-resume,
+without the native library, with JAX and the JAX package blocked from
+import, refusing the options the port does not implement yet, and
+refusing to run on the CPU unasked."""
 
 import glob
 import io
@@ -149,6 +150,59 @@ def test_checkpoint_kill_and_resume(fixdir, tmp_path, monkeypatch):
               out_fh=resumed)
     assert counts["blocks_resumed"] == 3
     assert resumed.getvalue() == plain.getvalue()
+
+
+@pytest.mark.parametrize("strip,ext", [("0", []), ("0", ["--extend_out"]),
+                                       ("1", ["--extend_out"])],
+                         ids=["gather", "gather_extend", "strip_extend"])
+def test_block_engine_without_the_native_library(fixdir, monkeypatch,
+                                                 strip, ext):
+    """The block engine with the native library unavailable to it and to
+    RowWriter (get_lib gives None where they look it up) formats its rows
+    with RowWriter.format_block, the degenerate pairs' repaired values
+    written in: byte-equal to the run with the library."""
+    monkeypatch.setenv("NGSLD_BLOCK_STRIP", strip)
+    # the strip EM's plain version runs many small tensor ops: more threads
+    # only fight the other test workers for the cores
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(min(n_threads, 2))
+    try:
+        _without_native_library(fixdir, monkeypatch, ext)
+    finally:
+        torch.set_num_threads(n_threads)
+
+
+def _without_native_library(fixdir, monkeypatch, ext):
+    from ngsld_tpu_torch import native
+    from ngsld_tpu_torch.io.writer import RowWriter
+    from ngsld_tpu_torch.utils.logging import RunLog
+    counts, calls = {}, []
+    orig_summary, orig_format = RunLog.summary, RowWriter.format_block
+
+    def keep_counters(self):
+        counts.update(self.counters)
+        orig_summary(self)
+
+    def counted_format(self, *a, **k):
+        calls.append(len(a[0]))
+        return orig_format(self, *a, **k)
+
+    monkeypatch.setattr(RunLog, "summary", keep_counters)
+    monkeypatch.setattr(RowWriter, "format_block", counted_format)
+    argv = [a for a in _argv(fixdir, [
+        "--max_kb_dist", "10", "--min_maf", "0.05", "--precision", "f32",
+        "--chunk_pairs", "300"]) if a != "--extend_out"] + ext
+    with_lib = io.BytesIO()
+    run_torch(params_from_args(argv), out_fh=with_lib)
+    assert not calls
+    with monkeypatch.context() as mp:
+        mp.setattr(native, "get_lib", lambda: None)
+        mp.setattr(engine_block, "get_lib", lambda: None)
+        without = io.BytesIO()
+        run_torch(params_from_args(argv), out_fh=without)
+    assert sum(calls) == counts["pairs_emitted"] > 100
+    assert counts["pairs_refined"] > 0 and counts["pairs_rederived"] > 0
+    assert without.getvalue() == with_lib.getvalue()
 
 
 @pytest.mark.parametrize("mode", ["0", "1", "ring"],

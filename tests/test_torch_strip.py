@@ -1,6 +1,7 @@
 """The port's strip sweep on the CPU, held against the JAX package and the
-strict oracle: the strip planner, the strip tables, the strip EM's plain
-PyTorch version against the Pallas kernel in interpret mode (the contract
+strict oracle: the strip planner, the strip chunker (no device), the
+strip tables, the strip EM's plain PyTorch version against the Pallas
+kernel in interpret mode (the contract
 of tests/test_pallas_strip.py: hap freqs within 3e-5, n_used exact, nIter
 within 1 on more than 95% of live cells, r2p within 2e-5, dead cells at
 the f0 init with nIter at the cap), the emission epilogues, and the
@@ -30,7 +31,8 @@ from ngsld_tpu_torch import engine_block
 from ngsld_tpu_torch.cli import main, params_from_args
 from ngsld_tpu_torch.engine import run_torch
 from ngsld_tpu_torch.kernels import strip_em as tstrip
-from ngsld_tpu_torch.plan.strips import TA, TB, strip_plan
+from ngsld_tpu_torch.plan.band import PairBlock
+from ngsld_tpu_torch.plan.strips import TA, TB, strip_chunks, strip_plan
 from ngsld_tpu_torch.strict import StrictError
 from ngsld_tpu_torch.utils.conformance import cmp_vs_strict
 
@@ -92,6 +94,77 @@ def test_strip_plan_matches_jax(kind):
     np.testing.assert_array_equal(ta2, j_ta)
     np.testing.assert_array_equal(tb2, j_tb)
     assert util2 == j_util
+
+
+# ------------------------------------------------------------ the chunker
+
+def _pair_stream(S, width, keep, block_pairs, seed=5):
+    """A banded pair stream as plan.band.iter_pair_blocks yields it:
+    anchor-major pairs a < b < a + width + 1, a `keep` share of them, in
+    blocks of block_pairs pairs that cut through anchor-tile groups."""
+    rng = np.random.default_rng(seed)
+    a = np.repeat(np.arange(S, dtype=np.int64), width)
+    b = a + np.tile(np.arange(1, width + 1), S)
+    live = (b < S) & (rng.random(len(a)) < keep)
+    a, b = a[live], b[live]
+    d = (b - a).astype(np.float64)
+    blocks = [PairBlock(s1=a[i:i + block_pairs], s2=b[i:i + block_pairs],
+                        dist=d[i:i + block_pairs])
+              for i in range(0, len(a), block_pairs)]
+    return a, b, blocks
+
+
+@pytest.mark.parametrize("S,width,gmaxt,ctarget", [
+    (1536, 60, 4, 1 << 20),     # narrow groups batch under gmaxt
+    (1024, 700, 2, 1 << 20),    # wide groups split into gmaxt-tile pieces
+    (1536, 60, 8, 9000),        # chunks cut by ctarget
+], ids=["narrow_batched", "wide_split", "ctarget_cut"])
+def test_strip_chunks_budgets_cells_and_order(S, width, gmaxt, ctarget):
+    a, b, blocks = _pair_stream(S, width, 0.5, 777)
+    chunks = list(strip_chunks(iter(blocks), gmaxt, ctarget))
+    anchors_per_chunk = []
+    for i, (ta, tb, sel, blk, rem) in enumerate(chunks):
+        gc = len(ta)
+        assert 1 <= gc <= gmaxt and len(tb) == gc
+        assert len(sel) == len(blk.s1) > 0
+        # sel's cell is the pair's: tile, anchor row, partner column
+        assert ((0 <= sel) & (sel < gc * TA * TB)).all()
+        t, r, c = sel // (TA * TB), sel // TB % TA, sel % TB
+        np.testing.assert_array_equal(ta[t] * TA + r, blk.s1)
+        np.testing.assert_array_equal(tb[t] * TB + c, blk.s2)
+        np.testing.assert_array_equal(blk.dist, blk.s2 - blk.s1)
+        if rem:
+            # a non-final piece of a split group fills its chunk alone
+            assert gc == gmaxt and len(set(ta)) == 1
+            assert chunks[i + 1][4] == rem - 1
+        elif len(set(ta)) > 1:
+            # whole groups batch only within the pair budget
+            assert len(sel) <= ctarget
+        anchors_per_chunk.append(len(set(ta)))
+    # the pairs, each split group merged back as the emit pipeline does
+    # (its chunks up to the final one, lexsorted), are the stream's
+    got, run = [], []
+    for ta, tb, sel, blk, rem in chunks:
+        run.append(blk)
+        if rem:
+            continue
+        s1 = np.concatenate([x.s1 for x in run])
+        s2 = np.concatenate([x.s2 for x in run])
+        order = np.lexsort((s2, s1))
+        got.append((s1[order], s2[order]))
+        run = []
+    np.testing.assert_array_equal(np.concatenate([g[0] for g in got]), a)
+    np.testing.assert_array_equal(np.concatenate([g[1] for g in got]), b)
+    n_split = sum(1 for c in chunks if c[4])
+    whole = len(list(strip_chunks(iter(blocks), gmaxt, 1 << 30)))
+    if width > gmaxt * TB:
+        assert n_split > 0
+    else:
+        assert n_split == 0
+        if ctarget < 1 << 20:
+            assert len(chunks) > whole
+        else:
+            assert max(anchors_per_chunk) > 1
 
 
 # ------------------------------------------------------------- the tables
