@@ -58,8 +58,8 @@ from .io.writer import RowWriter
 from .kernels.pair_em import pick_gather_kernel
 from .kernels.strip_em import strip_i_align, strip_streamed, strip_tables
 from .loaders import _OverlapIngest, _StreamedGLLoader, _StreamedTextLoader
-from .native import (LabelBlob, format_rows_derive, get_lib,
-                     make_labels_blob)
+from .native import (OUT_POOL, LabelBlob, OutLease, format_rows_derive,
+                     get_lib, make_labels_blob)
 from .ops.preprocess import preprocess
 from .parallel.strip_ind import strip_compute_ind
 from .parallel.sweep import compute_block_ind
@@ -551,7 +551,7 @@ def _span_if(log, on, name):
 
 
 def format_rows(rw, maf, pars, prec, get_refiner, log, blk, fm, im,
-                rung=None):
+                rung=None, out=None):
     """The fmt stage's derive and format of a block's (or a merged split
     group's) rows -> the rows' bytes. rw: the RowWriter that formats. The
     degenerate pairs (refine.degenerate_tiers) take
@@ -559,7 +559,9 @@ def format_rows(rw, maf, pars, prec, get_refiner, log, blk, fm, im,
     derive+format call, or, without the native library, written into the
     unpacked columns of the one RowWriter.format_block call. rung: the
     gather rung that took the block (rank 0's piece of it on a mesh), for
-    its counter."""
+    its counter. out: a native.OutLease the native call formats into (the
+    bytes are then a view of its buffer); the Python path leaves it
+    unused."""
     with log.span("sweep: fmt/tiers"):
         n_iter = im[:, 0].astype(np.int32)
         if im.shape[1] > 1:
@@ -593,7 +595,7 @@ def format_rows(rw, maf, pars, prec, get_refiner, log, blk, fm, im,
                 rw.blob, rw.off, blk.s1, blk.s2, blk.dist, fm[:, 0],
                 fm[:, 1:5], maf[blk.s1], maf[blk.s2], n_used, n_iter,
                 pars.extend_out,
-                overrides=None if fix is None else (idx, fix))
+                overrides=None if fix is None else (idx, fix), out=out)
         if data is None:
             # only reachable on an fm dtype mismatch — a code bug
             raise RuntimeError("native derive formatter rejected the chunk")
@@ -617,8 +619,11 @@ class _Emit:
     back, then format_rows) and write (rows, or a checkpoint shard); the
     other ranks run send. FIFO queues keep rows in (s1, s2) order. The
     heavy parts (device wait, native formatting, file IO) release the
-    GIL, so they overlap each other and the main thread's dispatch. A
-    stage's error ends it and the stages after it and lands in err."""
+    GIL, so they overlap each other and the main thread's dispatch. fmt
+    formats into buffers leased from native.OUT_POOL and hands write a
+    view; it holds each block back until the next block's native format
+    starts. A stage's error ends it and the stages after it and lands in
+    err."""
 
     def __init__(self, log, m, fmt_rows=None, ckpt=None, out_fh=None):
         self.log, self.m, self.fmt_rows = log, m, fmt_rows
@@ -628,11 +633,14 @@ class _Emit:
         self.q = queue.Queue(maxsize=3)            # main -> pull / send
         if m is None or m.rank == 0:
             fmt_q = queue.Queue(maxsize=2)         # pull -> fmt
-            write_q = queue.Queue(maxsize=2)       # fmt -> write
+            # fmt -> write, beside the block fmt holds back (self.held)
+            self.write_q = queue.Queue(maxsize=1)
+            self.held = None
             self.threads = [
                 self._stage(self.q, fmt_q, self.pull, "ngsld-pull"),
-                self._stage(fmt_q, write_q, self.fmt, "ngsld-fmt"),
-                self._stage(write_q, None, self.write, "ngsld-write")]
+                self._stage(fmt_q, self.write_q, self.fmt, "ngsld-fmt",
+                            end=self.forward),
+                self._stage(self.write_q, None, self.write, "ngsld-write")]
         else:
             self.threads = [self._stage(self.q, None, self.send,
                                         "ngsld-send")]
@@ -643,7 +651,10 @@ class _Emit:
         for t in self.threads:
             t.join()
 
-    def _stage(self, in_q, out_q, fn, name):
+    def _stage(self, in_q, out_q, fn, name, end=None):
+        """A thread that applies fn to each item of in_q and puts what it
+        returns on out_q; end() runs when its input ends or fails, before
+        the None that ends out_q."""
         def run():
             try:
                 while (item := in_q.get()) is not None:
@@ -654,11 +665,13 @@ class _Emit:
                         while in_q.get() is not None:  # unblock the producer
                             pass
                         return
-                    # None: nothing to forward yet (fmt is accumulating a
-                    # split group)
+                    # None: nothing to forward (fmt forwards its blocks
+                    # itself)
                     if out_q is not None and res is not None:
                         out_q.put(res)
             finally:
+                if end is not None:
+                    end()
                 if out_q is not None:
                     out_q.put(None)
         t = threading.Thread(target=run, daemon=True, name=name)
@@ -695,7 +708,9 @@ class _Emit:
         sites) arrive window-major; they accumulate here (meta="cont") and
         merge back into global (s1, s2) row order when the final chunk
         lands (meta=("final", its first chunk)); host memory for the merge
-        is O(the group's rows)."""
+        is O(the group's rows). The formatted block is held back (forward)
+        and goes to write when the next block's native format starts, or
+        when the input ends."""
         if meta == "cont":
             self.pending.append((blk, fm, im))
             return None
@@ -713,16 +728,43 @@ class _Emit:
                                 dist=dist[order])
                 fm = np.concatenate([p[1] for p in parts])[order]
                 im = np.concatenate([p[2] for p in parts])[order]
+        # the block before goes to the write stage when this one's native
+        # format starts (the lease's on_take), not when it is done: a
+        # write can hold the GIL for its whole copy (an in-memory sink),
+        # and this block's Python part would wait on it, so the format
+        # and the write would take turns
+        lease = OutLease(OUT_POOL, on_take=self.hand_off)
         with self.log.span("sweep: format"):
-            data = self.fmt_rows(blk, fm, im, rung)
-        return bi, data, span0
+            data = self.fmt_rows(blk, fm, im, rung, out=lease)
+        self.forward()   # the Python path takes no lease
+        if lease.buf is not None:
+            self.log.count("emit_buf_alloc" if lease.fresh
+                           else "emit_buf_reuse")
+        self.held = (bi, data, span0, lease)
+        return None
 
-    def write(self, bi, data, span0):
+    def forward(self):
+        """Hand fmt's held block to the write stage."""
+        if self.held is not None:
+            held, self.held = self.held, None
+            self.write_q.put(held)
+
+    def hand_off(self):
+        """forward from inside the next block's format (its lease's
+        on_take), under a span of its own: the wait for room in write_q
+        while the write stage is behind."""
+        if self.held is not None:
+            with self.log.span("sweep: fmt/hand-off"):
+                self.forward()
+
+    def write(self, bi, data, span0, lease):
         """Write rows, or commit a checkpoint shard. A merged split group
         writes all its rows under its final bi, then commits empty
         placeholder shards for the group's earlier bis (concatenate needs a
         dense block range; a resume treats done(final bi) as the
-        group's)."""
+        group's). data may be a view of the lease's buffer: write() reads
+        it only during the call (io's contract), so the buffer goes back to
+        the pool when the write returns."""
         with self.log.span("sweep: write"):
             if self.ckpt is not None:
                 with self.ckpt.open_block(bi) as bfh:
@@ -736,7 +778,8 @@ class _Emit:
                 try:
                     self.out_fh.write(data)
                 except TypeError:
-                    self.out_fh.write(data.decode())
+                    self.out_fh.write(str(data, "utf-8"))
+        lease.release()
 
 
 def _dispatch_all(pars, log, m, mode, emit, blocks, done_set, ckpt):

@@ -396,38 +396,107 @@ def _f32p(a):
         ctypes.POINTER(ctypes.c_float))
 
 
-_fmt_tls = threading.local()
+class OutPool:
+    """Free np.uint8 output buffers for the bulk formatters, kept for the
+    life of the process. The block engine's emit formats each block into
+    a leased buffer and hands the write stage a view of it, so after the
+    first blocks of a process no block's bytes land in fresh memory; the
+    other callers lease one for the call and get a bytes copy. The pool
+    holds what is given back and never more than were out at once (with
+    one emit pipeline 4: the block fmt formats, the one it holds back, one
+    queued and the write stage's). A lease never waits: with no free
+    buffer large enough it allocates one."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free = []
+
+    def _take(self, nbytes: int):
+        """A free buffer of at least nbytes, or a new one -> (buf, new)."""
+        with self._lock:
+            # by position: list.remove would compare arrays with ==
+            self._free.sort(key=len)
+            for i, buf in enumerate(self._free):
+                if len(buf) >= nbytes:
+                    return self._free.pop(i), False
+            if self._free:  # outgrown: the smallest goes for a larger one
+                self._free.pop(0)
+        # a power of two, so that blocks of about one size share buffers;
+        # pages past what a block writes are never touched
+        return np.empty(1 << (max(nbytes, 4096) - 1).bit_length(),
+                        np.uint8), True
+
+    def _give(self, buf):
+        with self._lock:
+            self._free.append(buf)
 
 
-def _format_with_retry(call, n, labels_blob, label_off, extend):
+class OutLease:
+    """One block's output buffer from an OutPool: format_rows_derive(...,
+    out=lease) takes it at the size it needs (growing it on a retry),
+    right before its native call; release() gives it back once the view
+    it returned has been written. A lease that is never released is
+    dropped with its buffer. `fresh`: the buffer was allocated or grown
+    for this lease. on_take: called once, at the first take."""
+
+    __slots__ = ("pool", "buf", "fresh", "on_take")
+
+    def __init__(self, pool: OutPool, on_take=None):
+        self.pool, self.buf, self.fresh = pool, None, False
+        self.on_take = on_take
+
+    def take(self, nbytes: int) -> np.ndarray:
+        if self.on_take is not None:
+            hook, self.on_take = self.on_take, None
+            hook()
+        if self.buf is None or len(self.buf) < nbytes:
+            self.buf, new = self.pool._take(nbytes)
+            self.fresh |= new
+        return self.buf
+
+    def release(self):
+        if self.buf is not None:
+            self.pool._give(self.buf)
+            self.buf = None
+
+
+# module-level so that it outlives the emit's threads and the jobs
+OUT_POOL = OutPool()
+
+
+def _format_with_retry(call, n, labels_blob, label_off, extend, out=None):
     """Shared grow-and-retry protocol for the bulk formatters.
 
     Worst-case row budget: 2 labels + 17 numeric fields ("-0.000001",
     "inf", "%.0f" dists up to ~1e15) at <=24 bytes each, tabs + newline.
     The C path returns -1 on would-overflow (double and retry; a tight
     estimate only risks one retry, never corruption) and -2 on allocation
-    failure (raise MemoryError)."""
+    failure (raise MemoryError). With an OutLease `out` the rows are
+    formatted into its buffer and a memoryview of them is returned; else
+    into a buffer leased from OUT_POOL for the call, and a bytes copy is
+    returned."""
     max_lab = int(np.diff(np.r_[label_off, len(labels_blob)]).max()) \
         if len(label_off) else 16
     per_row = 2 * max_lab + (17 if extend else 5) * 24 + 32
     cap = max(4096, n * per_row + 1024)
-    n_threads = min(os.cpu_count() or 1, 8)
-    while True:
-        # per-thread persistent buffer: the emit pipeline formats ~1M-row
-        # chunks every step — a fresh np.empty each call re-faults ~500 MB
-        # of pages per chunk, which rivals the formatting itself. Reuse is
-        # safe: the result is copied out via tobytes() before return.
-        buf = getattr(_fmt_tls, "buf", None)
-        if buf is None or len(buf) < cap:
-            buf = np.empty(cap, np.uint8)
-            _fmt_tls.buf = buf
-        w = call(buf.ctypes.data_as(ctypes.POINTER(ctypes.c_char)),
-                 len(buf), n_threads)
-        if w >= 0:
-            return buf[:w].tobytes()
-        if w == -2:
-            raise MemoryError("native row formatter: allocation failed")
-        cap = len(buf) * 2
+    # a core is left free: the block engine's emit writes the block before
+    # while this one formats (the other callers write after the call)
+    n_threads = min(max((os.cpu_count() or 1) - 1, 1), 8)
+    lease = OutLease(OUT_POOL) if out is None else out
+    try:
+        while True:
+            buf = lease.take(cap)
+            w = call(buf.ctypes.data_as(ctypes.POINTER(ctypes.c_char)),
+                     len(buf), n_threads)
+            if w >= 0:
+                return memoryview(buf)[:w] if out is not None \
+                    else buf[:w].tobytes()
+            if w == -2:
+                raise MemoryError("native row formatter: allocation failed")
+            cap = len(buf) * 2
+    finally:
+        if out is None:
+            lease.release()
 
 
 def format_rows_native(labels_blob: bytes, label_off: np.ndarray,
@@ -470,11 +539,15 @@ def format_rows_native(labels_blob: bytes, label_off: np.ndarray,
 
 def format_rows_derive(labels_blob: bytes, label_off: np.ndarray,
                        s1, s2, dist, r2p, f, maf1, maf2, n_used, n_iter,
-                       extend: bool, overrides=None):
+                       extend: bool, overrides=None, out=None):
     """Derive D/D'/r2/hap-MAFs/chi2 from the hap freqs AND format, all in
     the native worker threads. r2p and f must share a float32/float64
     dtype; bytes are identical to deriving via engine._stats_host/_chi2_host
-    first. Returns None if the native library is unavailable.
+    first. Returns the rows' bytes, or None if the native library is
+    unavailable.
+
+    out: an OutLease (OutLease(OUT_POOL)) to format into; the rows then come
+    back as a memoryview of its buffer, valid until the lease is released.
 
     overrides: optional (idx, cols) for refined degenerate rows — idx are
     ascending row indices whose columns are NOT derived but taken from
@@ -522,7 +595,7 @@ def format_rows_derive(labels_blob: bytes, label_off: np.ndarray,
                   *over_args,
                   bufp, cap, n_threads)
 
-    return _format_with_retry(call, n, labels_blob, label_off, extend)
+    return _format_with_retry(call, n, labels_blob, label_off, extend, out)
 
 
 def tier_scan_native(f: np.ndarray, f32_prec: bool):

@@ -17,6 +17,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <limits>
+#include <mutex>
 #include <thread>
 #include <type_traits>
 #include <vector>
@@ -784,14 +785,21 @@ done:
 
 // ---- multithreaded row formatting -----------------------------------------
 //
-// Shared scaffolding for the bulk TSV formatters: worker threads format
-// contiguous row ranges into private growable buffers which are then
-// concatenated into `out`. Returns bytes written, -1 if out_cap is too
-// small (caller grows and retries), -2 on allocation failure (caller
-// raises MemoryError). `fill` emits one row's numeric columns after the
-// two labels and returns the new write pointer; the caller guarantees
-// >= 1024 bytes of headroom past the labels (ample: worst-case non-label
-// fields bound to ~650 bytes even with huge snprintf fallbacks).
+// Shared scaffolding for the bulk TSV formatters: worker t formats its
+// contiguous row range into scratch buffer t, then, after every worker is
+// done, copies it into `out` at its prefix offset (the copies run in
+// parallel too). Returns bytes written, -1 if out_cap is too small (caller
+// grows and retries), -2 on allocation failure (caller raises
+// MemoryError). `fill` emits one row's numeric columns after the two
+// labels and returns the new write pointer; the caller guarantees >= 1024
+// bytes of headroom past the labels (ample: worst-case non-label fields
+// bound to ~650 bytes even with huge snprintf fallbacks).
+//
+// The scratch outlives the call: one buffer per worker, grown when a call
+// needs more and never shrunk, so a process that formats block after
+// block (the emit of every job) allocates and page-faults it once. A call
+// leases the set under a lock; a call that finds it taken formats into a
+// private set, freed on return, rather than wait.
 
 struct FmtChunk {
   char* buf = nullptr;
@@ -799,6 +807,18 @@ struct FmtChunk {
   int64_t cap = 0;
   bool oom = false;
 };
+
+struct FmtScratch {
+  std::mutex mu;
+  std::vector<FmtChunk> chunks;  // guarded by mu
+};
+
+static FmtScratch& fmt_scratch() {
+  // never destroyed: a daemon thread may still be formatting while the
+  // process runs its static destructors at exit
+  static FmtScratch* s = new FmtScratch();
+  return *s;
+}
 
 template <typename Fill>
 static int64_t mt_rows_run(int64_t n_rows, const char* labels,
@@ -809,8 +829,8 @@ static int64_t mt_rows_run(int64_t n_rows, const char* labels,
   if ((int64_t)n_threads > n_rows) n_threads = (int)(n_rows ? n_rows : 1);
   if (n_threads == 1) {
     // Single worker (the 1-core box case): format straight into `out` —
-    // no private chunk buffer, no grow-realloc, no concat memcpy. -1 on
-    // would-overflow keeps the caller's grow-and-retry contract.
+    // no scratch buffer, no copy. -1 on would-overflow keeps the caller's
+    // grow-and-retry contract.
     char* p = out;
     char* const end = out + out_cap;
     for (int64_t j = 0; j < n_rows; j++) {
@@ -829,31 +849,55 @@ static int64_t mt_rows_run(int64_t n_rows, const char* labels,
     }
     return p - out;
   }
-  std::vector<FmtChunk> chunks((size_t)n_threads);
-  auto work = [&](int t) {
+  FmtScratch& kept = fmt_scratch();
+  std::unique_lock<std::mutex> lease(kept.mu, std::try_to_lock);
+  std::vector<FmtChunk> own;
+  std::vector<FmtChunk>& chunks = lease.owns_lock() ? kept.chunks : own;
+  if (chunks.size() < (size_t)n_threads) chunks.resize((size_t)n_threads);
+  auto parallel = [n_threads](auto&& fn) {
+    std::vector<std::thread> ths;
+    for (int t = 1; t < n_threads; t++) ths.emplace_back(fn, t);
+    fn(0);
+    for (auto& th : ths) th.join();
+  };
+  parallel([&](int t) {
     int64_t lo = n_rows * t / n_threads;
     int64_t hi = n_rows * (t + 1) / n_threads;
     FmtChunk& c = chunks[(size_t)t];
-    c.cap = (hi - lo) * 96 + 4096;
-    c.buf = (char*)std::malloc((size_t)c.cap);
-    if (!c.buf) {
-      c.oom = true;
-      return;
+    c.len = 0;
+    c.oom = false;
+    const int64_t want = (hi - lo) * 96 + 4096;
+    if (c.cap < want) {  // nothing to keep: a fresh buffer, not a realloc
+      std::free(c.buf);
+      c.buf = (char*)std::malloc((size_t)want);
+      c.cap = c.buf ? want : 0;
+      if (!c.buf) {
+        c.oom = true;
+        return;
+      }
     }
+    // the row loop keeps its pointers in locals: the chunks' headers
+    // share cache lines, and a store to one a row would bounce them
+    // between the workers
+    char* p = c.buf;
+    char* end = c.buf + c.cap;
     for (int64_t j = lo; j < hi; j++) {
       const char* l1 = labels + label_off[s1[j]];
       const char* l2 = labels + label_off[s2[j]];
       size_t n1 = std::strlen(l1), n2 = std::strlen(l2);
-      if ((size_t)(c.cap - c.len) < n1 + n2 + 1024) {
-        c.cap = c.cap * 2 + (int64_t)(n1 + n2) + 4096;
-        char* nb = (char*)std::realloc(c.buf, (size_t)c.cap);
-        if (!nb) {
+      if ((size_t)(end - p) < n1 + n2 + 1024) {
+        const int64_t len = p - c.buf;
+        const int64_t cap = c.cap * 2 + (int64_t)(n1 + n2) + 4096;
+        char* nb = (char*)std::realloc(c.buf, (size_t)cap);
+        if (!nb) {  // c.buf stays valid (and owned) at its old size
           c.oom = true;
           return;
         }
         c.buf = nb;
+        c.cap = cap;
+        p = nb + len;
+        end = nb + cap;
       }
-      char* p = c.buf + c.len;
       std::memcpy(p, l1, n1);
       p += n1;
       *p++ = '\t';
@@ -862,30 +906,25 @@ static int64_t mt_rows_run(int64_t n_rows, const char* labels,
       *p++ = '\t';
       p = fill(p, j);
       *p++ = '\n';
-      c.len = p - c.buf;
     }
-  };
-  std::vector<std::thread> ths;
-  for (int t = 1; t < n_threads; t++) ths.emplace_back(work, t);
-  work(0);
-  for (auto& th : ths) th.join();
+    c.len = p - c.buf;
+  });
   bool oom = false;
-  for (auto& c : chunks) oom |= c.oom;
-  if (oom) {  // -2: allocation failure (caller raises MemoryError)
-    for (auto& c : chunks) std::free(c.buf);
-    return -2;
-  }
   int64_t total = 0;
-  for (auto& c : chunks) total += c.len;
-  int64_t w = -1;
-  if (total <= out_cap) {
-    w = 0;
-    for (auto& c : chunks) {
-      std::memcpy(out + w, c.buf, (size_t)c.len);
-      w += c.len;
-    }
+  std::vector<int64_t> at((size_t)n_threads);
+  for (int t = 0; t < n_threads; t++) {
+    oom |= chunks[(size_t)t].oom;
+    at[(size_t)t] = total;
+    total += chunks[(size_t)t].len;
   }
-  for (auto& c : chunks) std::free(c.buf);
+  int64_t w = oom ? -2 : total <= out_cap ? total : -1;
+  if (w >= 0) {
+    parallel([&](int t) {
+      const FmtChunk& c = chunks[(size_t)t];
+      std::memcpy(out + at[(size_t)t], c.buf, (size_t)c.len);
+    });
+  }
+  for (auto& c : own) std::free(c.buf);
   return w;
 }
 
