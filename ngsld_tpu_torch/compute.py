@@ -8,10 +8,17 @@ steps on its share of a block's pairs or of a chunk's tiles
 The site tables stay on the device; per block only the (2, P) index (or
 the chunk's tile list and sel) crosses over, and only (r2p, hap freqs)
 plus int metadata come back. The other columns (D, D', r2, hap MAFs, chi2)
-derive on the host (hostcols._stats_host/_chi2_host)."""
+derive on the host (hostcols._stats_host/_chi2_host).
+
+The Pearson r2 step of compute_block records one span `compute: r2p` a
+block into the RunLog that step_log sets for the calling thread (a
+torch.profiler range of that name while a profiler runs, over the card
+kernels it launches)."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import numpy as np
@@ -25,6 +32,22 @@ from .plan.strips import TA, TB
 
 # bytes of one gathered E[G] operand of the Pearson r2 step
 _R2P_BYTES = 1 << 28
+
+# the RunLog of the calling thread's compute_block calls (step_log)
+_STEP_LOG = contextvars.ContextVar("ngsld_step_log", default=None)
+
+
+@contextlib.contextmanager
+def step_log(log):
+    """compute_block calls inside record their r2 step's span into log
+    (the calling thread's; the step's five arguments stay as they are,
+    since ldbench's fault checks put a function of those five in its
+    place)."""
+    token = _STEP_LOG.set(log)
+    try:
+        yield
+    finally:
+        _STEP_LOG.reset(token)
 
 
 def _imat(n_iter, n_used, ignore_miss_data: bool, n_ind: int):
@@ -52,12 +75,15 @@ def compute_block(gn: torch.Tensor, eg: torch.Tensor, maf: torch.Tensor,
     thread-block cluster beyond it, and streamed in chunks past the
     cluster's capacity."""
     s1, s2 = sidx[0].long(), sidx[1].long()
+    log = _STEP_LOG.get()
     # Pearson r2 is row-wise: slices of pairs keep the two gathered (p, I)
     # operands bounded at large cohorts (one slice at I = 100)
     step = max(1, _R2P_BYTES // (eg.shape[1] * eg.element_size()))
-    r2p = torch.cat([pearson_r2(eg.index_select(0, s1[i:i + step]),
-                                eg.index_select(0, s2[i:i + step]))
-                     for i in range(0, max(len(s1), 1), step)])
+    with (log.span("compute: r2p") if log is not None
+          else contextlib.nullcontext()):
+        r2p = torch.cat([pearson_r2(eg.index_select(0, s1[i:i + step]),
+                                    eg.index_select(0, s2[i:i + step]))
+                         for i in range(0, max(len(s1), 1), step)])
     rung = pick_gather_kernel(gn.shape[1], gn.element_size(), gn.device,
                               sidx.shape[1])
     f, n_iter, n_used = GATHER_KERNELS[rung](gn, sidx, maf, ignore_miss_data)

@@ -529,8 +529,9 @@ class _GatherSweep:
                                   self.device, hi - lo)
         self.log.count("rung_" + rung)
         self.log.count("pairs_" + rung, hi - lo)
-        dev_out = compute.compute_block(gn_d, eg_d, maf_d, sidx,
-                                        self.pars.ignore_miss_data)
+        with compute.step_log(self.log):
+            dev_out = compute.compute_block(gn_d, eg_d, maf_d, sidx,
+                                            self.pars.ignore_miss_data)
         return bi, blk, dev_out, None, None, spec, rung
 
 
